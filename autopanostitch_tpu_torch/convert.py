@@ -1,7 +1,8 @@
 """Carry state from the JAX package into the port.
 
 The pipeline has no learned weights; the state that crosses between the
-packages is stage output: features, the match graph, cameras and gains.
+packages is stage output: features, the match graph, cameras, gains, the
+homography BA / planar result and the render canvas.
 Each function takes the JAX package's object (or anything with the same
 fields) holding arrays convertible with numpy, and returns the port's.
 """
@@ -48,3 +49,28 @@ def cameras(cams, device="cpu") -> Cameras:
 def gains(g) -> np.ndarray:
     """Per-image (N, 3) gains (numpy in both packages)."""
     return np.asarray(g, np.float32)
+
+
+def homography_ba(hba) -> dict:
+    """JAX `run_bundle_adjustment_h` result, or the planar part of a
+    panorama dict (`H_abs`, `reachable`, `anchor`), -> the port's fields:
+    float32 (n, 3, 3) H_abs, bool reachable, int anchor, and whichever of
+    `H_init` / `final_cost` it carries."""
+    out = {"H_abs": np.array(_field(hba, "H_abs"), np.float32),
+           "anchor": int(_field(hba, "anchor"))}
+    if "reachable" in hba:
+        out["reachable"] = np.array(hba["reachable"], bool)
+    if "H_init" in hba:
+        out["H_init"] = np.array(hba["H_init"], np.float32)
+    if "final_cost" in hba:
+        out["final_cost"] = float(hba["final_cost"])
+    return out
+
+
+def canvas(c) -> dict:
+    """JAX `compute_canvas` dict -> the port's: python scalars and a float32
+    (3, 3) R_ref (the frame of the planar and stereographic surfaces)."""
+    return {"mode": str(c["mode"]), "f_pan": float(c["f_pan"]), "x0": float(c["x0"]),
+            "y0": float(c["y0"]), "Hc": int(c["Hc"]), "Wc": int(c["Wc"]),
+            "R_ref": np.array(c["R_ref"], np.float32), "ref_idx": int(c["ref_idx"]),
+            "uv_abs_cap": float(c.get("uv_abs_cap", 8.0))}

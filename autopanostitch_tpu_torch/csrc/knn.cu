@@ -1,22 +1,40 @@
-// Pooled exact k-nearest-neighbour search (squared L2) for descriptor matching.
+// Exact k-nearest-neighbour search (squared L2) for descriptor matching, in
+// two modes that share one tile loop.
 //
 // Replaces the TPU kernel `two_nn_pallas` (autopanostitch_tpu/ops/pallas/
-// match_kernel.py:129, body `_kernel` :45) and the XLA `global_knn` body it
-// stood in for (autopanostitch_tpu/ops/matching.py:253). It computes what
-// they compute: for each query row, the k targets with the smallest
-//   d = max(|q|^2 + |t|^2 - 2 q.t, 0)
-// where a target is masked to d = 1e18 when it lies in the query's image
-// (tid == qid), is invalid (tid == -2), the query is invalid (qid == -2), or
-// the target IS the query (index == self_idx). Ties keep the lower target
-// index, as jax.lax.top_k does, so masked targets fill a short list in
-// ascending index order exactly like the reference. Only (F, k) indices and
-// distances are written: the F x F distance matrix never exists.
+// match_kernel.py:129, body `_kernel` :45) and the XLA bodies it stood in
+// for: the pooled `global_knn` (autopanostitch_tpu/ops/matching.py:253) and
+// the per-pair `two_nn` of `match_pair` (matching.py:65, :89). For each
+// query row it finds the k targets with the smallest
+//   d = max(|q|^2 + |t|^2 - 2 q.t, 0).
+// Masked targets get d = 1e18 and still compete. Ties keep the lower target
+// index, as jax.lax.top_k does, so a row with fewer than k valid targets is
+// filled with the lowest-index masked targets exactly like the reference.
+// Only (rows, k) indices and distances are written: no distance matrix
+// reaches device memory.
 //
-// What bounds it on an H100: the q.t products, 2 F^2 D flops (~430 GFLOP at
-// F = 41k, D = 128), run on the fp32 FMA pipes (67 TFLOP/s peak) -- tensor
-// cores would mean TF32 or bf16 and break parity with the float32
-// reference, so they are left to a later change. Device memory traffic is
-// small (targets are re-read from L2 by every query block).
+// Modes (the `Rule` template parameter of `knn_tile`):
+// - pooled (`apst_knn`): one query set against one target set. A target is
+//   masked when it lies in the query's image (tid == qid), is invalid
+//   (tid == -2), the query is invalid (qid == -2), or it IS the query
+//   (index == self_idx).
+// - pair list (`apst_knn_pairs`): N images of Kc descriptor slots, and a
+//   list of P image pairs (a, b). Block (p, dir, query block) matches the
+//   queries of one image of pair p against all slots of the other, dir 0
+//   a -> b and dir 1 b -> a. The three are flattened onto gridDim.x (2^31
+//   - 1 blocks), so a whole pair list of any practical length is one
+//   launch. Only
+//   invalid targets are masked (tag -2): `two_nn` masks targets only and
+//   keeps every query's true nearest index; the wrapper masks the
+//   distances of invalid queries afterwards. Indices are slots of the
+//   target image (0..Kc-1).
+//
+// What bounds it on an H100: the q.t products, 2 Fq Ft D flops (pooled:
+// ~430 GFLOP at F = 41k; pair list: ~320 GFLOP for 300 pairs of 2048 x 2048
+// both ways), run on the fp32 FMA pipes (67 TFLOP/s peak) -- tensor cores
+// would mean TF32 or bf16 and break parity with the float32 reference, so
+// they are left to a later change. Device memory traffic is small (target
+// tiles are re-read from L2 by every query block).
 //
 // Design: a block owns BQ = 64 queries, staged transposed in shared memory
 // once. It streams the targets in tiles of BT = 64, 32 dimensions at a time,
@@ -25,7 +43,7 @@
 // over the targets it has seen (k <= 8 is a template parameter, so the lists
 // stay in registers); the 16 threads that share a query hold disjoint target
 // subsets, and their lists are merged at the end with k rounds of
-// half-warp shuffles.
+// half-warp shuffles. Row norms are computed once per launch for every row.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -81,12 +99,29 @@ __global__ void row_norms(const float* __restrict__ x, int F, int D, float* __re
   if (lane == 0) out[row] = s;
 }
 
-template <int K>
-__global__ void __launch_bounds__(NT) knn_kernel(
-    const float* __restrict__ q, const int* __restrict__ qid, const int* __restrict__ qself,
-    const float* __restrict__ qn, int Fq, const float* __restrict__ t,
-    const int* __restrict__ tid, const float* __restrict__ tn, int Ft, int D,
-    int* __restrict__ out_idx, float* __restrict__ out_dist) {
+// Pooled rule: per-query image ids (-2 = invalid query) and self indices.
+struct PooledRule {
+  const int* qid;
+  const int* qself;
+  __device__ int tag(int gq) const { return qid[gq]; }
+  __device__ int self(int gq) const { return qself != nullptr ? qself[gq] : -1; }
+};
+
+// Pair-list rule: queries carry tag -1, which equals no target tag (0 valid,
+// -2 invalid), so only invalid targets are masked; no self exclusion.
+struct PairRule {
+  __device__ int tag(int) const { return -1; }
+  __device__ int self(int) const { return -1; }
+};
+
+// The shared tile loop: queries q[q0 .. q0 + BQ) of a set of Fq rows
+// against all Ft rows of t. The base pointers are offset to the two sets by
+// the caller; indices written are local to t.
+template <int K, class Rule>
+__device__ __forceinline__ void knn_tile(
+    const float* __restrict__ q, const float* __restrict__ qn, int Fq, int q0, Rule rule,
+    const float* __restrict__ t, const int* __restrict__ tid, const float* __restrict__ tn,
+    int Ft, int D, int* __restrict__ out_idx, float* __restrict__ out_dist) {
   __shared__ __align__(16) float sq[DMAX][BQ + PAD];
   __shared__ __align__(16) float st[DC][BT + PAD];
   __shared__ int s_tid[BT];
@@ -94,7 +129,6 @@ __global__ void __launch_bounds__(NT) knn_kernel(
 
   const int tx = threadIdx.x % 16;  // target sub-tile
   const int ty = threadIdx.x / 16;  // query sub-tile
-  const int q0 = blockIdx.x * BQ;
   const int d4n = D / 4;
 
   // stage the query tile transposed: sq[d][r] = q[q0 + r][d]
@@ -116,8 +150,8 @@ __global__ void __launch_bounds__(NT) knn_kernel(
     const int gq = q0 + ty * 4 + a;
     const bool ok = gq < Fq;
     my_qn[a] = ok ? qn[gq] : 0.f;
-    my_qid[a] = ok ? qid[gq] : -2;
-    my_self[a] = ok && qself != nullptr ? qself[gq] : -1;
+    my_qid[a] = ok ? rule.tag(gq) : -2;
+    my_self[a] = ok ? rule.self(gq) : -1;
   }
 
   float bd[4][K];
@@ -223,11 +257,46 @@ __global__ void __launch_bounds__(NT) knn_kernel(
 }
 
 template <int K>
+__global__ void __launch_bounds__(NT) knn_kernel(
+    const float* __restrict__ q, const int* __restrict__ qid, const int* __restrict__ qself,
+    const float* __restrict__ qn, int Fq, const float* __restrict__ t,
+    const int* __restrict__ tid, const float* __restrict__ tn, int Ft, int D,
+    int* __restrict__ out_idx, float* __restrict__ out_dist) {
+  knn_tile<K>(q, qn, Fq, blockIdx.x * BQ, PooledRule{qid, qself}, t, tid, tn, Ft, D, out_idx,
+              out_dist);
+}
+
+// grid 2 P QB, QB = ceil(Kc / BQ): blockIdx.x = (2 pair + direction) QB +
+// query block, so the query blocks of one (pair, direction) run adjacent.
+// Output (P, 2, Kc, K).
+template <int K>
+__global__ void __launch_bounds__(NT) knn_pairs_kernel(
+    const float* __restrict__ desc, const int* __restrict__ tag, const float* __restrict__ norms,
+    int Kc, int D, const int* __restrict__ pairs, int* __restrict__ out_idx,
+    float* __restrict__ out_dist) {
+  const int qb_n = (Kc + BQ - 1) / BQ;
+  const int pd = blockIdx.x / qb_n, qb = blockIdx.x % qb_n;
+  const int p = pd / 2, dir = pd % 2;
+  const size_t qa = (size_t)pairs[2 * p + dir] * Kc;
+  const size_t tb = (size_t)pairs[2 * p + 1 - dir] * Kc;
+  const size_t out = ((size_t)p * 2 + dir) * Kc * K;
+  knn_tile<K>(desc + qa * D, norms + qa, Kc, qb * BQ, PairRule{}, desc + tb * D,
+              tag + tb, norms + tb, Kc, D, out_idx + out, out_dist + out);
+}
+
+template <int K>
 void launch(const float* q, const int* qid, const int* qself, const float* qn, int Fq,
             const float* t, const int* tid, const float* tn, int Ft, int D, int* out_idx,
             float* out_dist, cudaStream_t s) {
   const int blocks = (Fq + BQ - 1) / BQ;
   knn_kernel<K><<<blocks, NT, 0, s>>>(q, qid, qself, qn, Fq, t, tid, tn, Ft, D, out_idx, out_dist);
+}
+
+template <int K>
+void launch_pairs(const float* desc, const int* tag, const float* norms, int Kc, int D,
+                  const int* pairs, int P, int* out_idx, float* out_dist, cudaStream_t s) {
+  const unsigned grid = 2u * (unsigned)P * (unsigned)((Kc + BQ - 1) / BQ);
+  knn_pairs_kernel<K><<<grid, NT, 0, s>>>(desc, tag, norms, Kc, D, pairs, out_idx, out_dist);
 }
 
 }  // namespace
@@ -251,6 +320,24 @@ extern "C" int apst_knn(const float* q, const int* qid, const int* qself, int Fq
     case 7: launch<7>(q, qid, qself, qn, Fq, t, tid, tnp, Ft, D, out_idx, out_dist, s); break;
     default: launch<8>(q, qid, qself, qn, Fq, t, tid, tnp, Ft, D, out_idx, out_dist, s); break;
   }
+  return (int)cudaGetLastError();
+}
+
+// desc (N * Kc, D) row-major, tag (N * Kc) with -2 = invalid slot, pairs
+// (P, 2) image indices < N; norms (N * Kc) scratch; out (P, 2, Kc, k).
+extern "C" int apst_knn_pairs(const float* desc, const int* tag, int N, int Kc, int D,
+                              const int* pairs, int P, int k, float* norms, int* out_idx,
+                              float* out_dist, void* stream) {
+  if (D % DC != 0 || D > DMAX || k < 1 || k > 2 || N <= 0 || Kc <= 0 || P <= 0 ||
+      2LL * P * ((Kc + BQ - 1) / BQ) > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int F = N * Kc;
+  row_norms<<<(F + 7) / 8, 256, 0, s>>>(desc, F, D, norms);
+  if (k == 1)
+    launch_pairs<1>(desc, tag, norms, Kc, D, pairs, P, out_idx, out_dist, s);
+  else
+    launch_pairs<2>(desc, tag, norms, Kc, D, pairs, P, out_idx, out_dist, s);
   return (int)cudaGetLastError();
 }
 

@@ -88,6 +88,8 @@ def _declare(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.apst_knn.argtypes = [P, P, P, I, P, P, I, I, I, P, P, P, P, P]
     lib.apst_knn.restype = I
+    lib.apst_knn_pairs.argtypes = [P, P, I, I, I, P, I, I, P, P, P, P]
+    lib.apst_knn_pairs.restype = I
     lib.apst_gather_windows.argtypes = [P, I, I, I, P, P, P, I, I, I, P, P]
     lib.apst_gather_windows.restype = I
     lib.apst_error_string.argtypes = [I]

@@ -1,17 +1,22 @@
-"""B1: pooled exact k-NN (squared L2) — CUDA kernel wrapper and plain version.
+"""B1: exact k-NN (squared L2) — CUDA kernel wrappers and plain versions.
 
 Port of `two_nn_pallas` (`autopanostitch_tpu/ops/pallas/match_kernel.py:129`)
-generalised from 2 to k neighbours, which makes it the body of the pooled
-matcher `global_knn` (`autopanostitch_tpu/ops/matching.py:253`): k = 4 with
-same-image/invalid masks there, k = 2 with `self_idx` reproduces
-`two_nn_pallas`. The kernel is `csrc/knn.cu`.
+in two modes of one kernel (`csrc/knn.cu`):
 
-Mask encoding: `tid == -2` marks an invalid target, `qid == -2` an invalid
-query (its whole row is masked), `self_idx[i]` the target index the query
-must not match. Masked distances are `BIG` = 1e18 and still compete, so a
-row with fewer than k valid targets is filled with the lowest-index masked
-targets — exactly what `jax.lax.top_k` returns on the reference's masked
-distance row.
+- `knn`, pooled: generalised from 2 to k neighbours, the body of the pooled
+  matcher `global_knn` (`autopanostitch_tpu/ops/matching.py:253`): k = 4
+  with same-image/invalid masks there, k = 2 with `self_idx` reproduces
+  `two_nn_pallas`. Mask encoding: `tid == -2` marks an invalid target,
+  `qid == -2` an invalid query (its whole row is masked), `self_idx[i]` the
+  target index the query must not match.
+- `knn_pairs`, pair list: the exact 2-NN of `two_nn` (`matching.py:65`) on
+  every image pair of a list, both directions, in one launch — what
+  `match_pair` needs for the pairwise rescue and the second passes. Only
+  invalid targets are masked, as `two_nn` does.
+
+Masked distances are `BIG` = 1e18 and still compete, so a row with fewer
+than k valid targets is filled with the lowest-index masked targets —
+exactly what `jax.lax.top_k` returns on the reference's masked distance row.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from autopanostitch_tpu_torch.kernels import _build
 
 BIG = 1e18
 launches = 0  # number of CUDA kernel launches through `knn`
+pair_launches = 0  # number of CUDA kernel launches through `knn_pairs`
+_PLAIN_CHUNK_BYTES = 1 << 30  # bound of the plain pair-list version's working set
 
 
 def knn_plain(desc_q, qid, desc_t, tid, k: int, self_idx=None, block: int = 1024):
@@ -102,4 +109,90 @@ def knn(desc_q, qid, desc_t, tid, k: int, self_idx=None):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("knn kernel: inputs must be contiguous")
     return _knn_cuda(desc_q, qid, desc_t, tid, k, self_idx)
+
+
+def knn_pairs_plain(desc, valid, pairs, k: int = 2):
+    """Plain PyTorch version of `knn_pairs`: per pair chunk, batched `bmm`
+    distances, invalid targets at BIG, and a STABLE sort (ties keep the
+    lower index). Chunks hold about 1 GB of distances, sort values and
+    indices. Returns (idx (P, 2, K, k) int32, dist (P, 2, K, k) float32)."""
+    N, Kc, _ = desc.shape
+    norms = torch.sum(desc * desc, dim=-1)  # (N, K)
+    chunk = max(1, _PLAIN_CHUNK_BYTES // (2 * 16 * Kc * Kc))
+    pl = pairs.long()
+    idx_out, d_out = [], []
+    for s in range(0, pl.shape[0], chunk):
+        cp = pl[s : s + chunk]
+        idx_d, d_d = [], []
+        for qi, ti in ((cp[:, 0], cp[:, 1]), (cp[:, 1], cp[:, 0])):
+            cross = torch.bmm(desc[qi], desc[ti].transpose(1, 2))
+            d = torch.clamp(norms[qi][:, :, None] + norms[ti][:, None, :] - 2.0 * cross, min=0.0)
+            d = torch.where(valid[ti][:, None, :], d, torch.full_like(d, BIG))
+            vals, order = torch.sort(d, dim=-1, stable=True)
+            idx_d.append(order[..., :k].to(torch.int32))
+            d_d.append(vals[..., :k])
+        idx_out.append(torch.stack(idx_d, 1))
+        d_out.append(torch.stack(d_d, 1))
+    return torch.cat(idx_out), torch.cat(d_out)
+
+
+def _knn_pairs_cuda(desc, valid, pairs, k):
+    global pair_launches
+    lib = _build.library()
+    N, Kc, D = desc.shape
+    P = pairs.shape[0]
+    dev = desc.device
+    tag = torch.where(valid, 0, -2).to(torch.int32)
+    norms = torch.empty(N * Kc, dtype=torch.float32, device=dev)
+    idx = torch.empty((P, 2, Kc, k), dtype=torch.int32, device=dev)
+    dist = torch.empty((P, 2, Kc, k), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.apst_knn_pairs(
+        desc.data_ptr(), tag.data_ptr(), N, Kc, D, pairs.data_ptr(), P, k,
+        norms.data_ptr(), idx.data_ptr(), dist.data_ptr(), stream,
+    )
+    _build.check(err, "apst_knn_pairs")
+    pair_launches += 1
+    return idx, dist
+
+
+def knn_pairs(desc, valid, pairs, k: int = 2):
+    """k nearest target slots for every query slot of every pair, both ways.
+
+    desc (N, K, D) float32 descriptor slots per image, valid (N, K) bool,
+    pairs (P, 2) int32 image indices. Returns (idx, dist), each
+    (P, 2, K, k): [p, 0] is pairs[p, 0] -> pairs[p, 1], [p, 1] the reverse;
+    idx are slots of the target image, ascending distance, ties -> lower
+    slot. Only invalid targets are masked (BIG); invalid queries keep their
+    true neighbours. CUDA tensors launch the kernel (D a multiple of 32,
+    <= 128; k <= 2; 2 P ceil(K / 64) < 2^31 blocks); CPU tensors take the
+    plain version.
+    """
+    devs = {t.device for t in (desc, valid, pairs)}
+    if len(devs) != 1:
+        raise ValueError(f"knn_pairs: tensors on several devices {devs}")
+    if desc.dtype != torch.float32 or valid.dtype != torch.bool or pairs.dtype != torch.int32:
+        raise TypeError("knn_pairs: desc float32, valid bool and pairs int32 expected")
+    if desc.ndim != 3 or valid.shape != desc.shape[:2] or pairs.ndim != 2 or pairs.shape[1] != 2:
+        raise ValueError(f"knn_pairs: shapes {tuple(desc.shape)}, {tuple(valid.shape)}, "
+                         f"{tuple(pairs.shape)}")
+    if not 1 <= k <= min(2, desc.shape[1]):
+        raise ValueError(f"knn_pairs: k={k} outside [1, min(2, K={desc.shape[1]})]")
+    if pairs.numel() and not (0 <= int(pairs.min()) and int(pairs.max()) < desc.shape[0]):
+        raise ValueError(f"knn_pairs: image indices outside [0, {desc.shape[0]})")
+    dev = desc.device
+    if dev.type == "cpu":
+        return knn_pairs_plain(desc, valid, pairs, k)
+    if dev.type != "cuda":
+        raise ValueError(f"knn_pairs: unsupported device {dev}")
+    D = desc.shape[2]
+    if D % 32 or D > 128:
+        raise ValueError(f"knn_pairs kernel: descriptor width {D} must be a multiple of 32 <= 128")
+    blocks = 2 * pairs.shape[0] * -(-desc.shape[1] // 64)
+    if not 1 <= blocks < 2**31:
+        raise ValueError(f"knn_pairs kernel: {pairs.shape[0]} pairs of {desc.shape[1]} slots "
+                         f"need {blocks} blocks, outside [1, 2^31)")
+    if not (desc.is_contiguous() and pairs.is_contiguous()):
+        raise ValueError("knn_pairs kernel: inputs must be contiguous")
+    return _knn_pairs_cuda(desc, valid, pairs, k)
 

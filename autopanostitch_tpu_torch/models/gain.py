@@ -1,11 +1,13 @@
-"""Gain compensation, rotational path (port of `models/gain.py`).
+"""Gain compensation, rotational and planar paths (port of `models/gain.py`).
 
 Overlap statistics are sampled on each image's own strided pixel grid, as
 the reference does: grid colours by a strided slice, each grid point's
 world ray projected into every camera, a bounds test for visibility. The
 (N, N) counts and colour sums accumulate in ONE pass over grid chunks (the
 reference's camera-block host loop worked around a TPU runtime fault and is
-not carried over). The tiny per-channel solve is host numpy, copied.
+not carried over). The planar path maps a strided canvas grid into every
+image through its inverse homography instead. The tiny per-channel solve is
+host numpy, copied.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from autopanostitch_tpu.config import GainConfig
 from autopanostitch_tpu_torch.ops import geometry as geo
 from autopanostitch_tpu_torch.ops import projections as proj
+from autopanostitch_tpu_torch.ops import sampling as samp
 
 
 def overlap_statistics_imagespace(images, feathers, sizes, R, K, stride: int,
@@ -76,6 +79,58 @@ def overlap_statistics_imagespace(images, feathers, sizes, R, K, stride: int,
         Nij += V.sum(-1)
         sumC += torch.einsum("ijp,ipc->ijc", V, col_all[:, s : s + chunk])
     return Nij, sumC
+
+
+def overlap_statistics_planar(images, feathers, H_inv, x0: float, y0: float, stride: int,
+                              grid_h: int, grid_w: int, chunk: int = 16384):
+    """Planar-path overlap statistics (reference `gainCompensationH.m`):
+    the canvas subgrid (stride px, world origin (x0, y0)) maps into each
+    image through H_inv (N, 3, 3); a grid point counts for image i where it
+    lands inside i with feather weight > 1e-4 and a positive denominator.
+    Returns (Nij (N, N), sumC (N, N, 3)) tensors, colours on the 0-255
+    scale of the Brown-Lowe sigmas."""
+    N = images.shape[0]
+    dev = images.device
+    ys, xs = torch.meshgrid(torch.arange(grid_h, device=dev), torch.arange(grid_w, device=dev),
+                            indexing="ij")
+    xp = (xs * stride).float().reshape(-1) + x0
+    yp = (ys * stride).float().reshape(-1) + y0
+    idx = torch.arange(N, device=dev)
+    Hi = H_inv[:, None]  # (N, 1, 3, 3)
+    Nij = torch.zeros((N, N), device=dev)
+    sumC = torch.zeros((N, N, 3), device=dev)
+    for s in range(0, xp.shape[0], chunk):
+        xx, yy = xp[None, s : s + chunk], yp[None, s : s + chunk]
+        den = Hi[..., 2, 0] * xx + Hi[..., 2, 1] * yy + Hi[..., 2, 2]
+        den = torch.where(den.abs() < 1e-10, torch.full_like(den, 1e-10), den)
+        u = (Hi[..., 0, 0] * xx + Hi[..., 0, 1] * yy + Hi[..., 0, 2]) / den
+        v = (Hi[..., 1, 0] * xx + Hi[..., 1, 1] * yy + Hi[..., 1, 2]) / den
+        col, ok = samp.sample_bilinear_indexed(images, idx, u, v)
+        wf, _ = samp.sample_bilinear_indexed(feathers[..., None], idx, u, v)
+        V = (ok & (wf[..., 0] > 1e-4) & (den > 0)).float()
+        col = col * 255.0
+        Nij += V @ V.mT
+        for c in range(3):
+            sumC[:, :, c] += (V * col[..., c]) @ V.mT
+    return Nij, sumC
+
+
+def compute_gains_planar(images, feathers, H_inv, x0: float, y0: float, canvas_hw,
+                         cfg: GainConfig = GainConfig()) -> np.ndarray:
+    """Planar-path gains (N, 3) (reference `gainCompensationH.m`): device
+    statistics on the canvas grid + host solve. H_inv (N, 3, 3) numpy maps
+    canvas world coordinates to source pixels."""
+    n = images.shape[0]
+    if not cfg.enabled:
+        return np.ones((n, 3), np.float32)
+    Hc, Wc = canvas_hw
+    stride = cfg.grid_stride
+    gh = max(1, int(np.ceil(Hc / stride)))
+    gw = max(1, int(np.ceil(Wc / stride)))
+    Nij, sumC = overlap_statistics_planar(
+        images, feathers, torch.as_tensor(np.asarray(H_inv, np.float32), device=images.device),
+        x0, y0, stride, gh, gw)
+    return solve_gains(Nij.cpu().numpy(), sumC.cpu().numpy(), cfg)
 
 
 def solve_gains(Nij: np.ndarray, sumC: np.ndarray, cfg: GainConfig = GainConfig(),

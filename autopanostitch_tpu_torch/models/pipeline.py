@@ -1,15 +1,25 @@
-"""End-to-end stitching pipeline on PyTorch (port of the rotational main
-path of `models/pipeline.py`).
+"""End-to-end stitching pipeline on PyTorch (port of `models/pipeline.py`).
 
-SIFT -> pooled k-NN matching + ratio test -> top-m candidate pairs ->
-batched RANSAC with Brown-Lowe acceptance -> connected components ->
-incremental R, f, k1 bundle adjustment -> straightening -> gain
-compensation -> spherical bicubic2x render with multiband blending -> crop.
+SIFT -> pooled k-NN matching + ratio test (or pairwise matching) -> top-m
+candidate pairs -> batched RANSAC with Brown-Lowe acceptance -> connected
+components -> the pairwise rescue of a suspiciously fragmented graph ->
+per component: the second matching pass (re-resize + re-extract +
+re-match, or a pairwise re-match) -> incremental R, f, k1 bundle adjustment
+-> straightening -> gain compensation -> render in every configured
+projection -> crop; or, for a planar scan, 8-DOF homography bundle
+adjustment -> planar gains -> planar compositing -> crop.
 
-Where the reference would leave this path, the port raises
-NotImplementedError naming the ROADMAP item instead of taking a shortcut:
-the pairwise rescue and the second matching pass (A9), the planar branch,
-other projections, blends, detectors and annotations (A11).
+Every pairwise re-match runs on kernel B1's pair-list mode. Randomness:
+the first verification draws from a torch.Generator seeded with `seed`;
+where the reference folds its key with a tag (1: the pairwise second pass,
+2: the re-extracting second pass, 3: the rescue), the port seeds a fresh
+generator from (seed, tag) (`derived_generator`), so each of those draws
+starts from the same state for every component, as the reference's folded
+keys do. The port raises NotImplementedError, naming the ROADMAP item,
+where the reference would run something it has not ported: binary
+detectors (A11.4), other transformation models and MLESAC (A11.3), the
+approximate matcher (A11.5), annotations (A11.6) and the adaptive RANSAC
+budget.
 """
 
 from __future__ import annotations
@@ -25,11 +35,14 @@ import torch
 from autopanostitch_tpu.config import StitchConfig
 from autopanostitch_tpu.models import crop as crop_stage
 from autopanostitch_tpu.models import straighten as straighten_stage
+from autopanostitch_tpu.utils import image_io
 from autopanostitch_tpu.utils.image_io import ImageSet
 from autopanostitch_tpu_torch import device as device_mod
 from autopanostitch_tpu_torch.models import bundle as bundle_stage
+from autopanostitch_tpu_torch.models import bundle_h as bundle_h_stage
 from autopanostitch_tpu_torch.models import features as features_stage
 from autopanostitch_tpu_torch.models import gain as gain_stage
+from autopanostitch_tpu_torch.models import planar as planar_stage
 from autopanostitch_tpu_torch.models import render as render_stage
 from autopanostitch_tpu_torch.ops import matching as mt
 from autopanostitch_tpu_torch.ops import ransac as rs
@@ -90,12 +103,46 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported to the torch package yet (ROADMAP {item})")
 
 
+def derived_generator(device, seed: int, tag: int) -> torch.Generator:
+    """A torch.Generator on `device` seeded from (seed, tag): the port's
+    counterpart of the reference's `jax.random.fold_in(key, tag)`."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(np.random.SeedSequence([int(seed), int(tag)]).generate_state(1, np.uint64)[0]))
+    return g
+
+
+def _matcher_threshold(cfg: StitchConfig) -> float:
+    """The pairwise matcher's SSD threshold for float descriptors (None = no
+    cut, the scratch matcher's float default). Binary descriptors come with
+    the corner detectors (ROADMAP A11.4)."""
+    if cfg.detector.detector.upper() in ("HARRIS", "FAST", "ORB", "BRISK"):
+        raise _not_ported(f"binary-descriptor matching ({cfg.detector.detector})", "A11.4")
+    return float("inf") if cfg.matching.threshold is None else float(cfg.matching.threshold)
+
+
+def _all_pairs_graph(desc, mask, cfg: StitchConfig, ratio: float):
+    """Pairwise-match every i < j image pair on B1's pair mode. Returns
+    (pairs, pair_idx, pair_mask, counts (P,)) numpy."""
+    pairs, idx, m, n = mt.match_all_pairs(desc, mask, ratio=ratio,
+                                          max_matches=cfg.matching.max_matches_per_pair,
+                                          threshold=_matcher_threshold(cfg))
+    return pairs, idx.cpu().numpy(), m.cpu().numpy(), n.cpu().numpy()
+
+
 def match_features(feats: SiftFeatures, cfg: StitchConfig):
-    """Pooled global matching: (pairs, pair_idx, pair_mask, counts, votes),
-    votes a lazy zero-argument callable giving the raw (N, N) kNN votes."""
-    if cfg.matching.match_pairwise:
-        raise _not_ported("pairwise matching (match_pairwise)", "A9")
+    """Feature matching: (pairs, pair_idx, pair_mask, counts, votes). Global
+    pooled mode (default): votes is a lazy zero-argument callable giving the
+    raw (N, N) kNN votes. Pairwise mode (`match_pairwise`): every pair on
+    B1's pair mode, and votes are the putative counts."""
     N, K, _ = feats.desc.shape
+    if cfg.matching.match_pairwise:
+        pairs, idx, m, n = _all_pairs_graph(feats.desc, feats.mask, cfg,
+                                            cfg.matching.ratio_threshold)
+        counts = np.zeros((N, N), np.int32)
+        counts[pairs[:, 0], pairs[:, 1]] = n
+        counts += counts.T
+        keep = n > 0
+        return pairs[keep], idx[keep], m[keep], counts, counts
     nn_idx, nn_dist, best, accepted = mt.global_match_stack(
         feats.desc, feats.mask, k=cfg.matching.k, method=cfg.matching.method,
         ratio=cfg.matching.ratio_threshold,
@@ -179,6 +226,20 @@ def _votes_arr(votes):
     return votes() if callable(votes) else votes
 
 
+def _vote_candidate_pairs(votes: np.ndarray, m: int) -> np.ndarray:
+    """Top-m neighbours per image by kNN votes -> (P, 2) i < j pair list."""
+    n = votes.shape[0]
+    cand = np.zeros((n, n), bool)
+    top = np.argsort(-votes, axis=1)[:, : min(m, n - 1)]
+    rows = np.repeat(np.arange(n), top.shape[1])
+    cols = top.ravel()
+    sel = votes[rows, cols] > 0
+    cand[rows[sel], cols[sel]] = True
+    cand = cand | cand.T
+    iu, ju = np.nonzero(np.triu(cand, 1))
+    return np.stack([iu, ju], 1).astype(np.int32)
+
+
 def _rescue_suspicious(comps: np.ndarray, votes, graph: MatchGraph) -> bool:
     """True when the component split looks like ratio starvation (a weak
     shard, or strong kNN votes across the split) — where the reference
@@ -198,6 +259,90 @@ def _rescue_suspicious(comps: np.ndarray, votes, graph: MatchGraph) -> bool:
         return inter_max >= 8
     med = float(np.median(votes[acc[:, 0], acc[:, 1]]))
     return inter_max >= max(8.0, 0.5 * med)
+
+
+def pairwise_rescue(feats: SiftFeatures, graph: MatchGraph, comps: np.ndarray, n: int,
+                    cfg: StitchConfig, generator: torch.Generator, votes=None):
+    """Re-match a suspiciously fragmented graph with the per-pair matcher at
+    the rescue ratio and keep the union with the first graph if it connects
+    more images (reference `pairwise_rescue`). Up to
+    pairwise_rescue_max_images every pair is re-matched; above it the
+    candidates are each image's top pairwise_rescue_m kNN-vote neighbours
+    plus the accepted pairs. Every re-match is one B1 pair-list launch.
+    Returns (graph, comps, adopted)."""
+    if not (cfg.matching.pairwise_rescue and not cfg.matching.match_pairwise
+            and _rescue_suspicious(comps, votes, graph)):
+        return graph, comps, False
+    ratio = cfg.matching.pairwise_rescue_ratio
+    if n <= cfg.matching.pairwise_rescue_max_images:
+        cfg_pw = cfg.replace(matching=dataclasses.replace(
+            cfg.matching, match_pairwise=True, ratio_threshold=ratio))
+        p2, pi2, pm2, c2, _ = match_features(feats, cfg_pw)
+    else:
+        votes_a = _votes_arr(votes)
+        if votes_a is None:
+            return graph, comps, False
+        cand = _vote_candidate_pairs(votes_a, cfg.matching.pairwise_rescue_m)
+        acc = np.asarray(graph.pairs)[np.asarray(graph.accepted, bool)]
+        if len(acc):
+            cand = np.unique(np.concatenate([cand, acc.astype(np.int32)]), axis=0)
+        if len(cand) == 0:
+            return graph, comps, False
+        idx, m_, nm = (t.cpu().numpy() for t in mt.match_pair_list(
+            feats.desc, feats.mask, cand, ratio=ratio,
+            max_matches=cfg.matching.max_matches_per_pair, threshold=_matcher_threshold(cfg)))
+        c2 = np.zeros((n, n), np.int32)
+        c2[cand[:, 0], cand[:, 1]] = nm
+        c2 += c2.T
+        keep = nm > 0
+        p2, pi2, pm2 = cand[keep], idx[keep], m_[keep]
+    if len(p2) == 0:
+        return graph, comps, False
+    p2, pi2, pm2 = select_candidate_pairs(p2, pi2, pm2, c2, cfg.image_match.m_brown_lowe)
+    graph2 = _merge_graphs(graph, verify_matches(feats, p2, pi2, pm2, c2, cfg, generator))
+    comps2 = connected_components(n, graph2.pairs, graph2.accepted)
+
+    def stitched(c):
+        _, k = np.unique(c, return_counts=True)
+        return int(k[k >= 2].sum())
+
+    better = stitched(comps2) > stitched(comps) or (
+        stitched(comps2) == stitched(comps) and len(np.unique(comps2)) < len(np.unique(comps)))
+    return (graph2, comps2, True) if better else (graph, comps, False)
+
+
+def _merge_graphs(g1: MatchGraph, g2: MatchGraph) -> MatchGraph:
+    """Union of two verified graphs: all of g2, plus g1's accepted pairs that
+    g2 did not accept (their H and inliers ride along); putative counts take
+    the elementwise max."""
+    acc2 = {(int(i), int(j)) for (i, j), a in zip(np.asarray(g2.pairs), np.asarray(g2.accepted))
+            if a}
+    g1_acc = np.asarray(g1.accepted, bool)
+    keep = [q for q in range(len(g1.pairs))
+            if g1_acc[q] and (int(g1.pairs[q][0]), int(g1.pairs[q][1])) not in acc2]
+    if not keep:
+        return g2
+    M = max(g1.pair_idx.shape[1], g2.pair_idx.shape[1])
+
+    def padM(x):
+        x = np.asarray(x)
+        pads = [(0, 0)] * x.ndim
+        pads[1] = (0, M - x.shape[1])
+        return np.pad(x, pads)
+
+    def cat(a, b):
+        return np.concatenate([np.asarray(a), np.asarray(b)])
+
+    return MatchGraph(
+        pairs=cat(g2.pairs, np.asarray(g1.pairs)[keep]),
+        pair_idx=cat(padM(g2.pair_idx), padM(np.asarray(g1.pair_idx)[keep])),
+        pair_mask=cat(padM(g2.pair_mask), padM(np.asarray(g1.pair_mask)[keep])),
+        H=cat(g2.H, np.asarray(g1.H)[keep]),
+        inliers=cat(padM(g2.inliers), padM(np.asarray(g1.inliers)[keep])),
+        num_inliers=cat(g2.num_inliers, np.asarray(g1.num_inliers)[keep]),
+        accepted=cat(g2.accepted, np.ones(len(keep), bool)),
+        counts=np.maximum(np.asarray(g1.counts), np.asarray(g2.counts)),
+    )
 
 
 def connected_components(n: int, pairs: np.ndarray, accepted: np.ndarray) -> np.ndarray:
@@ -220,30 +365,34 @@ def connected_components(n: int, pairs: np.ndarray, accepted: np.ndarray) -> np.
 
 def _check_supported(cfg: StitchConfig) -> None:
     if cfg.post.show_panorama_imgs_nums:
-        raise _not_ported("panorama annotations (show_panorama_imgs_nums)", "A11")
-    if cfg.straighten.force_planar_scan:
-        raise _not_ported("the planar path (force_planar_scan)", "A11")
+        raise _not_ported("panorama annotations (show_panorama_imgs_nums)", "A11.6")
+
+
+def _upload(stack, dev):
+    images = torch.as_tensor(np.asarray(stack)).to(dev)
+    return images.float() / 255.0 if images.dtype == torch.uint8 else images
+
+
+def _feathers(sizes, images):
+    return samp_ops.feather_stack(
+        torch.as_tensor(np.asarray(sizes), dtype=torch.int32, device=images.device),
+        images.shape[1], images.shape[2])
 
 
 def stitch(image_set: ImageSet, cfg: StitchConfig = StitchConfig(), seed: int = 0,
            device="cuda", timer=None) -> StitchResult:
-    """Stitch an image set into panoramas on `device` (no fallback: a CUDA
-    device that is missing raises). Randomness (RANSAC minimal sets) comes
-    from a torch.Generator seeded with `seed`."""
+    """Stitch an unordered image set into one or more panoramas on `device`
+    (no fallback: a CUDA device that is missing raises). Randomness comes
+    from torch.Generators seeded from `seed` (see the module doc)."""
     dev = device_mod.resolve(device)
     _check_supported(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     n = image_set.n
     with _stage(timer, "features"):
-        images = torch.as_tensor(np.asarray(image_set.images)).to(dev)
-        if images.dtype == torch.uint8:
-            images = images.float() / 255.0
+        images = _upload(image_set.images, dev)
         feats = features_stage.extract_features(images, image_set.sizes, cfg.detector)
-    feathers = samp_ops.feather_stack(
-        torch.as_tensor(np.asarray(image_set.sizes), dtype=torch.int32, device=dev),
-        images.shape[1], images.shape[2],
-    )
+    feathers = _feathers(image_set.sizes, images)
     with _stage(timer, "matching"):
         pairs, pair_idx, pair_mask, counts, votes = match_features(feats, cfg)
         if len(pairs):
@@ -252,26 +401,136 @@ def stitch(image_set: ImageSet, cfg: StitchConfig = StitchConfig(), seed: int = 
     with _stage(timer, "ransac"):
         graph = verify_matches(feats, pairs, pair_idx, pair_mask, counts, cfg, gen)
     comps = connected_components(n, graph.pairs, graph.accepted)
-    if (cfg.matching.pairwise_rescue and not cfg.matching.match_pairwise
-            and _rescue_suspicious(comps, votes, graph)):
-        raise _not_ported("the pairwise rescue of a fragmented match graph", "A9")
+    with _stage(timer, "pairwise_rescue"):
+        graph, comps, rescue_adopted = pairwise_rescue(
+            feats, graph, comps, n, cfg, derived_generator(dev, seed, 3), votes=votes)
+    # a per-pair dense graph (pairwise mode, or an adopted rescue) would only
+    # recompute the same matcher in the pairwise second pass: skip that one;
+    # the re-extracting second pass still applies (it changes the features)
+    graph_is_pairwise = cfg.matching.match_pairwise or rescue_adopted
 
     panoramas = []
     for label in np.unique(comps):
         members = np.nonzero(comps == label)[0]
         if len(members) < 2:
             continue
+        result = None
         if cfg.matching.second_pass and len(members) < n:
-            raise _not_ported("the second matching pass of a partial component", "A9")
-        panoramas.append(stitch_component(image_set, graph, feats, members, cfg,
-                                          images, feathers, timer=timer))
+            if cfg.matching.resize_panorama_cluster:
+                with _stage(timer, "second_pass"):
+                    sp = second_pass_component(image_set, members, cfg,
+                                               derived_generator(dev, seed, 2), dev)
+                if sp is not None and np.asarray(sp[3].accepted).any():
+                    comp_set, comp_images, comp_feats, comp_graph = sp
+                    result = stitch_component(
+                        comp_set, comp_graph, comp_feats, np.arange(len(members)), cfg,
+                        comp_images, _feathers(comp_set.sizes, comp_images), timer=timer)
+                    result["members"] = members
+            if result is None and not graph_is_pairwise:
+                with _stage(timer, "second_pass"):
+                    comp_graph = second_pass_matching(feats, members, graph, cfg,
+                                                      derived_generator(dev, seed, 1))
+                result = stitch_component(image_set, comp_graph, feats, members, cfg, images,
+                                          feathers, timer=timer)
+        if result is None:
+            result = stitch_component(image_set, graph, feats, members, cfg, images, feathers,
+                                      timer=timer)
+        panoramas.append(result)
     return StitchResult(panoramas=panoramas, graph=graph, components=comps, features=feats)
+
+
+def second_pass_component(image_set: ImageSet, members: np.ndarray, cfg: StitchConfig,
+                          generator: torch.Generator, device):
+    """The full second pass (`imageMatchingPanoramaConComps.m:48-90`):
+    re-resize the component's original images into the render limits
+    (`image_io.resize_fit`, shared with the reference), re-extract, match
+    every member pair on B1's pair mode, and re-verify. Returns (comp_set,
+    comp_images (tensor on `device`), comp_feats, comp_graph) with
+    member-local indices, or None when the set carries no originals or the
+    re-resize reproduces the first-pass sizes."""
+    if image_set.originals is None and image_set.paths is None:
+        return None
+    orig = [image_set.original(int(k)) for k in members]
+    if any(o is None for o in orig):
+        return None
+    if cfg.render.resize_image:
+        limits = (cfg.render.height_limit, cfg.render.width_limit)
+    else:
+        limits = (1 << 30, 1 << 30)
+    imgs = [image_io.resize_fit(o, *limits) for o in orig]
+    sizes = np.array([im.shape[:2] for im in imgs], np.int32)
+    if np.array_equal(sizes, image_set.sizes[members]):
+        return None
+    H = int(np.ceil(sizes[:, 0].max() / 32) * 32)
+    W = int(np.ceil(sizes[:, 1].max() / 32) * 32)
+    stack = np.stack([image_io._pad_to(im, H, W) for im in imgs])
+    comp_set = ImageSet(images=stack, sizes=sizes,
+                        names=[image_set.names[int(k)] for k in members])
+    images = _upload(stack, device)
+    feats = features_stage.extract_features(images, sizes, cfg.detector)
+    nc = len(members)
+    pairs_l, idx, m, nm = _all_pairs_graph(feats.desc, feats.mask, cfg,
+                                           cfg.matching.ratio_threshold)
+    keep = nm >= 4
+    counts = np.zeros((nc, nc), np.int32)
+    for p in np.nonzero(keep)[0]:
+        i, j = pairs_l[p]
+        counts[i, j] = counts[j, i] = int(nm[p])
+    sub_pairs, sub_idx, sub_mask = select_candidate_pairs(
+        pairs_l[keep], idx[keep], m[keep], counts, cfg.image_match.m_brown_lowe)
+    comp_graph = verify_matches(feats, sub_pairs, sub_idx, sub_mask, counts, cfg, generator)
+    return comp_set, images, feats, comp_graph
+
+
+def second_pass_matching(feats: SiftFeatures, members: np.ndarray, graph: MatchGraph,
+                         cfg: StitchConfig, generator: torch.Generator) -> MatchGraph:
+    """The pairwise second pass: re-match every member pair of a component
+    on its first-pass features (B1's pair mode) and re-verify. Returns a
+    MatchGraph in global image indices restricted to the member pairs."""
+    mem_d = torch.as_tensor(members, device=feats.desc.device)
+    pairs_l, idx, m, n = _all_pairs_graph(feats.desc[mem_d], feats.mask[mem_d], cfg,
+                                          cfg.matching.ratio_threshold)
+    keep = n >= 4
+    pairs_g = members[pairs_l[keep]]
+    counts = graph.counts.copy()
+    for p, (i, j) in enumerate(pairs_g):
+        counts[i, j] = counts[j, i] = int(n[keep][p])
+    sub_pairs, sub_idx, sub_mask = select_candidate_pairs(
+        pairs_g, idx[keep], m[keep], counts, cfg.image_match.m_brown_lowe)
+    return verify_matches(feats, sub_pairs, sub_idx, sub_mask, counts, cfg, generator)
+
+
+def _planar_pair_coords(graph: MatchGraph, keep, xy, sizes_all, cfg: StitchConfig):
+    """Inlier coordinates (u_i, u_j, w) of the accepted pairs `keep` for the
+    homography BA, subsampled per pair as the rotational BA does."""
+    P = len(keep)
+    M = min(cfg.bundle.max_matches, graph.pair_mask.shape[1])
+    u_i = np.zeros((P, M, 2), np.float32)
+    u_j = np.zeros((P, M, 2), np.float32)
+    w = np.zeros((P, M), np.float32)
+    for k, p in enumerate(keep):
+        idxs = np.nonzero(graph.pair_mask[p] & graph.inliers[p])[0]
+        gi, gj = int(graph.pairs[p, 0]), int(graph.pairs[p, 1])
+        if len(idxs) > M:
+            rng = np.random.default_rng(1000003 * gi + gj)
+            pick = bundle_stage.stratified_subsample(
+                xy[gi, graph.pair_idx[p, idxs, 0]], sizes_all[gi], M, cfg.bundle.subsample_mode,
+                rng, grid_bins=cfg.bundle.subsample_grid_bins,
+                polar_bins=cfg.bundle.subsample_polar_bins)
+            idxs = idxs[pick]
+        u_i[k, : len(idxs)] = xy[gi, graph.pair_idx[p, idxs, 0]]
+        u_j[k, : len(idxs)] = xy[gj, graph.pair_idx[p, idxs, 1]]
+        w[k, : len(idxs)] = 1.0
+    return u_i, u_j, w
 
 
 def stitch_component(image_set: ImageSet, graph: MatchGraph, feats: SiftFeatures,
                      members: np.ndarray, cfg: StitchConfig, images, feathers,
                      timer=None) -> Dict:
-    """Bundle-adjust, straighten, gain-compensate and render one component."""
+    """Bundle-adjust and render one component: the rotational body
+    (straighten, gains, every projection) or, for a planar scan
+    (`force_planar_scan` or BA's no-rotation verdict), homography BA and
+    planar compositing."""
     dev = images.device
     acc = graph.accepted
     with _stage(timer, "bundle_adjustment"):
@@ -281,12 +540,36 @@ def stitch_component(image_set: ImageSet, graph: MatchGraph, feats: SiftFeatures
             image_set.sizes, cfg.bundle, force_planar=cfg.straighten.force_planar_scan,
             device=dev,
         )
-    if ba["no_rotation"]:
-        raise _not_ported("the planar (no-rotation) path", "A11")
     sizes = image_set.sizes[members]
     mem_d = torch.as_tensor(members, device=dev)
     images_m, feathers_m = images[mem_d], feathers[mem_d]
     result: Dict = {"members": members, "ba": ba}
+
+    if ba["no_rotation"] or cfg.straighten.force_planar_scan:
+        remap = {int(g): k for k, g in enumerate(members)}
+        keep = [p for p in range(len(graph.pairs))
+                if acc[p] and int(graph.pairs[p, 0]) in remap and int(graph.pairs[p, 1]) in remap]
+        loc_pairs = np.array([[remap[int(i)], remap[int(j)]] for i, j in graph.pairs[keep]], int)
+        with _stage(timer, "bundle_adjustment_h"):
+            hba = bundle_h_stage.run_bundle_adjustment_h(
+                loc_pairs, graph.H[keep],
+                _planar_pair_coords(graph, keep, feats.xy.cpu().numpy(), image_set.sizes, cfg),
+                len(members), cfg.bundle, device=dev)
+        with _stage(timer, "render"):
+            planar = planar_stage.composite_from_abs(
+                images_m, feathers_m, sizes, hba["H_abs"], hba["reachable"],
+                blend_mode=cfg.blend.mode, bands=cfg.blend.bands,
+                max_megapixel=cfg.render.max_megapixel, gain_cfg=cfg.gain,
+                interp=cfg.render.interpolation)
+        result.update(planar)
+        result["hba"] = {k: hba[k] for k in ("H_abs", "anchor", "final_cost")}
+        result["H_abs"] = hba["H_abs"]
+        result["reachable"] = hba["reachable"]
+        result["anchor"] = hba["anchor"]
+        result["projections"] = {"planar": planar["panorama"]}
+        result["coverage_by_mode"] = {"planar": planar["coverage"]}
+        _apply_crop(result, cfg)
+        return result
 
     cams = ba["cameras"]
     R = cams.R.cpu().numpy()
@@ -307,11 +590,11 @@ def stitch_component(image_set: ImageSet, graph: MatchGraph, feats: SiftFeatures
         gains = gain_stage.compute_gains_rotational(
             images_m, feathers_m, R.astype(np.float32), K, sizes, cfg.gain, k1=k1)
     projections: Dict[str, np.ndarray] = {}
+    blend_mode = cfg.blend.mode
+    if blend_mode == "none":
+        blend_mode = f"none-{cfg.blend.compose_none_policy}"
     for mode in cfg.render.projections:
         canvas = render_stage.compute_canvas(R, K, sizes, mode, cfg.render, k1=k1, device=dev)
-        blend_mode = cfg.blend.mode
-        if blend_mode == "none":
-            blend_mode = f"none-{cfg.blend.compose_none_policy}"
         with _stage(timer, "render"):
             pano, cover = render_stage.render_rotational(
                 images_m, feathers_m, R, K, canvas, gains=gains, blend_mode=blend_mode,

@@ -1,11 +1,13 @@
-"""Spherical panorama renderer: tiled inverse-map compositing (port of the
-spherical path of `models/render.py`).
+"""Rotational panorama renderer: tiled inverse-map compositing (port of
+`models/render.py`), in every projection, blend and interpolation of the
+reference.
 
 Host control plane as in the reference: camera bounds on the surface
-(sampled on the device), canvas sizing, and per-tile contributor
-selection. The tiles render in batches: per tile, canvas pixel -> world ray
--> every contributor's camera -> bilinear taps on the 2x bicubic upsample
-of the contributors -> multiband blend -> uint8.
+(sampled on the device), reference-camera choice and canvas sizing, and
+per-tile contributor selection. The tiles render in batches: per tile,
+canvas pixel -> world ray -> every contributor's camera -> sampling
+(nearest, bilinear, bicubic, or bilinear taps on the 2x bicubic upsample)
+-> multiband, linear or none-* blend -> uint8.
 
 The bicubic2x upsample (Keys a = -0.5, `jax.image.resize` semantics, see
 `ops/sampling.py`) runs ONCE per image here, where the reference resizes
@@ -28,10 +30,13 @@ from autopanostitch_tpu_torch.ops import projections as proj
 from autopanostitch_tpu_torch.ops import sampling as samp
 
 
-def _bounds_per_camera(R, K, sizes, mode: str, k1=None, nx: int = 48, ny: int = 32):
-    """(N, 4) [umin, umax, vmin, vmax] per camera on the spherical surface
-    (tensors in, tensor out), azimuth measured relative to each camera's
-    centre so seam cameras keep FOV-wide bounds."""
+def _bounds_per_camera(R, K, sizes, mode: str, R_ref, uv_abs_cap: float, k1=None,
+                       nx: int = 48, ny: int = 32, pct=(1.0, 99.0)):
+    """(N, 4) [umin, umax, vmin, vmax] per camera on the surface (tensors in,
+    tensor out): each camera's pixel grid pushed to the surface. Angular
+    modes measure azimuth relative to each camera's centre, so seam cameras
+    keep FOV-wide bounds; planar and stereographic clip to +-uv_abs_cap and
+    take the pct percentiles of the valid samples (robust extents)."""
     proj.check_mode(mode)
     dev = R.device
     N = R.shape[0]
@@ -46,12 +51,33 @@ def _bounds_per_camera(R, K, sizes, mode: str, k1=None, nx: int = 48, ny: int = 
     cy = K[:, 1, 2][:, None]
     k1a = torch.zeros((N, 1), device=dev) if k1 is None else k1[:, None]
     d = proj.normalize_rays(proj.camera_pixel_rays(geo.invert_K(K), R, xp, yp, k1a, cx, cy))
-    u, v, _ = proj.ray_to_pano(mode, d)
+    u, v, valid = proj.ray_to_pano(mode, d, R_ref)
+    if mode in proj.REF_FRAME:
+        nan = torch.full_like(u, float("nan"))
+        un = torch.where(valid, torch.clamp(u, -uv_abs_cap, uv_abs_cap), nan)
+        vn = torch.where(valid, torch.clamp(v, -uv_abs_cap, uv_abs_cap), nan)
+        q = torch.tensor([pct[0] / 100.0, pct[1] / 100.0], device=dev)
+        bu = torch.nanquantile(un, q, dim=1)  # (2, N)
+        bv = torch.nanquantile(vn, q, dim=1)
+        return torch.stack([bu[0], bu[1], bv[0], bv[1]], -1)
+    big = torch.full_like(u, 1e9)
     fwd = proj.normalize_rays(R[:, 2, :])
-    u_cen, _, _ = proj.ray_to_pano(mode, fwd)
+    u_cen, _, _ = proj.ray_to_pano(mode, fwd, R_ref)
     du = torch.remainder(u - u_cen[:, None] + np.pi, 2 * np.pi) - np.pi
-    return torch.stack([u_cen + du.min(1).values, u_cen + du.max(1).values,
-                        v.min(1).values, v.max(1).values], -1)
+    return torch.stack([u_cen + torch.where(valid, du, big).min(1).values,
+                        u_cen + torch.where(valid, du, -big).max(1).values,
+                        torch.where(valid, v, big).min(1).values,
+                        torch.where(valid, v, -big).max(1).values], -1)
+
+
+def _auto_ref_areas(R, K, sizes, mode: str, uv_abs_cap: float, k1=None, pct=(1.0, 99.0)):
+    """(N,) canvas area du * dv with camera n as the reference frame (the
+    reference's autoRef search, `renderPanorama.m:84-122`)."""
+    areas = []
+    for n in range(R.shape[0]):
+        b = _bounds_per_camera(R, K, sizes, mode, R[n], uv_abs_cap, k1=k1, pct=pct)
+        areas.append((b[:, 1].max() - b[:, 0].min()) * (b[:, 3].max() - b[:, 2].min()))
+    return torch.stack(areas)
 
 
 def _memory_fit_pixels(device, margin_bytes: float = 256e6, frac: float = 0.8):
@@ -66,21 +92,37 @@ def _t(a, device, dtype=torch.float32):
     return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
 
+def _camera_bounds(R, K, sizes, mode, R_ref, uv_abs_cap, k1, pct, dev):
+    return _bounds_per_camera(_t(R, dev), _t(K, dev), _t(sizes, dev, torch.int32), mode,
+                              _t(R_ref, dev), uv_abs_cap,
+                              k1=None if k1 is None else _t(k1, dev), pct=pct).cpu().numpy()
+
+
 def compute_canvas(R, K, sizes, mode: str, cfg: RenderConfig = RenderConfig(),
                    ref_idx: int | None = None, k1=None, device=None):
-    """Canvas geometry dict(f_pan, x0, y0, Hc, Wc, R_ref, ref_idx, mode);
-    R/K/sizes/k1 numpy."""
+    """Canvas geometry dict(f_pan, x0, y0, Hc, Wc, R_ref, ref_idx, mode,
+    uv_abs_cap) (`renderPanorama.m:84-232`); R/K/sizes/k1 numpy. Planar and
+    stereographic pick the reference camera that minimises the canvas area
+    when cfg.auto_ref and ref_idx is None."""
     proj.check_mode(mode)
     dev = torch.device(device) if device is not None else torch.device("cpu")
+    R = np.asarray(R, np.float32)
+    K = np.asarray(K, np.float32)
+    pct = tuple(cfg.robust_pct)
+    if mode in proj.REF_FRAME and cfg.auto_ref and ref_idx is None:
+        areas = _auto_ref_areas(_t(R, dev), _t(K, dev), _t(sizes, dev, torch.int32), mode,
+                                cfg.uv_abs_cap, None if k1 is None else _t(k1, dev),
+                                pct).cpu().numpy()
+        areas = np.where(np.isfinite(areas), areas, np.inf)
+        ref_idx = int(np.argmin(areas)) if np.isfinite(areas).any() else 0
     if ref_idx is None:
         ref_idx = 0
-    R_ref = np.asarray(R)[ref_idx]
-    f_pan = float(np.asarray(K)[ref_idx][0, 0])
-    b = _bounds_per_camera(_t(R, dev), _t(K, dev), _t(sizes, dev, torch.int32), mode,
-                           k1=None if k1 is None else _t(k1, dev)).cpu().numpy()
+    R_ref = R[ref_idx]
+    f_pan = float(K[ref_idx][0, 0])
+    b = _camera_bounds(R, K, sizes, mode, R_ref, cfg.uv_abs_cap, k1, pct, dev)
     u0, u1 = float(b[:, 0].min()), float(b[:, 1].max())
     v0, v1 = float(b[:, 2].min()), float(b[:, 3].max())
-    if u1 - u0 > 2 * np.pi:
+    if mode in proj.ANGULAR and u1 - u0 > 2 * np.pi:
         u0, u1 = -np.pi, np.pi
     if mode == "equirectangular":
         u0, u1 = max(u0, -np.pi), min(u1, np.pi)
@@ -90,6 +132,14 @@ def compute_canvas(R, K, sizes, mode: str, cfg: RenderConfig = RenderConfig(),
     u1 += cfg.margin * du
     v0 -= cfg.margin * dv
     v1 += cfg.margin * dv
+    if mode == "stereographic":
+        ext = max(abs(u0), abs(u1), abs(v0), abs(v1))
+        u0, u1, v0, v1 = -ext, ext, -ext, ext
+    if mode in proj.REF_FRAME:
+        u0 -= cfg.pixel_pad / f_pan
+        u1 += cfg.pixel_pad / f_pan
+        v0 -= cfg.pixel_pad / f_pan
+        v1 += cfg.pixel_pad / f_pan
     scale = 1.0
     Wc = max(1, int(np.ceil(f_pan * (u1 - u0))))
     Hc = max(1, int(np.ceil(f_pan * (v1 - v0))))
@@ -120,17 +170,17 @@ def tile_contributors(canvas: dict, R, K, sizes, tile: tuple,
     th, tw = tile
     f_pan, x0, y0 = canvas["f_pan"], canvas["x0"], canvas["y0"]
     dev = torch.device(device) if device is not None else torch.device("cpu")
-    b = _bounds_per_camera(_t(R, dev), _t(K, dev), _t(sizes, dev, torch.int32), mode,
-                           k1=None if k1 is None else _t(k1, dev)).cpu().numpy()
+    b = _camera_bounds(R, K, sizes, mode, canvas["R_ref"], float(canvas.get("uv_abs_cap", 8.0)),
+                       k1, (1.0, 99.0), dev)
     px = (b[:, :2] - x0) * f_pan
     py = (b[:, 2:] - y0) * f_pan
-    wrap = 2 * np.pi * f_pan
 
     r0s = np.arange(0, Hc, th, dtype=np.float64)
     c0s = np.arange(0, Wc, tw, dtype=np.float64)
     R0, C0 = np.meshgrid(r0s, c0s, indexing="ij")
     origins = np.stack([C0.ravel(), R0.ravel()], -1)
-    shifts = np.array([0.0, wrap, -wrap])
+    wrap = 2 * np.pi * f_pan
+    shifts = np.array([0.0, wrap, -wrap] if mode in proj.ANGULAR else [0.0])
     tx0 = origins[:, 0][:, None, None]
     ty0 = origins[:, 1][:, None, None]
 
@@ -189,17 +239,54 @@ def tile_contributors(canvas: dict, R, K, sizes, tile: tuple,
     return sel.astype(np.int32), ok, origins.astype(np.float32)
 
 
-def _render_tiles(fine4, R, K, gains, k1, sel, sel_ok, origins, canvas, tile_h, tile_w,
-                  bands, angle_power, H_, W_):
+def _blend(cols, ws, blend_mode: str, bands: int):
+    """Blend Tb tiles of C contributors: cols (Tb, C, th, tw, 3), ws (Tb, C,
+    th, tw) -> (tile (Tb, th, tw, 3), wsum (Tb, th, tw)). linear and none-*
+    accumulate over the contributors in order, as the reference's scan."""
+    if blend_mode == "multiband":
+        return blend_ops.multiband_blend(cols, ws, bands=bands), ws.sum(1)
+    acc = torch.zeros_like(cols[:, 0])
+    if blend_mode == "linear":
+        wsum = torch.zeros_like(ws[:, 0])
+        for c in range(cols.shape[1]):
+            acc = acc + cols[:, c] * ws[:, c, ..., None]
+            wsum = wsum + ws[:, c]
+        return acc / torch.clamp(wsum, min=1e-8)[..., None], wsum
+    # none-last | none-first | none-maxangle (`fuseTile` :863-914)
+    policy = blend_mode.split("-")[1]
+    wsum = torch.zeros_like(ws[:, 0])
+    best = torch.zeros_like(ws[:, 0])
+    for c in range(cols.shape[1]):
+        w = ws[:, c]
+        valid = w > 1e-6
+        if policy == "first":
+            write = valid & (wsum <= 1e-6)
+        elif policy == "maxangle":
+            write = valid & (w > best)
+        else:
+            write = valid
+        acc = torch.where(write[..., None], cols[:, c], acc)
+        best = torch.where(write, w, best)
+        wsum = wsum + w
+    return acc, wsum
+
+
+BLENDS = ("multiband", "linear", "none-last", "none-first", "none-maxangle")
+INTERPS = ("nearest", "bilinear", "bicubic", "bicubic2x")
+
+
+def _render_tiles(images4, fine4, R, K, gains, k1, sel, sel_ok, origins, canvas, tile_h, tile_w,
+                  blend_mode, bands, angle_power, interp):
     """Render a batch of Tb tiles: (uint8 (Tb, th, tw, 3), covered (Tb, th, tw))."""
-    dev = fine4.device
+    dev = images4.device
     Tb, C = sel.shape
     ty, tx = torch.meshgrid(torch.arange(tile_h, device=dev, dtype=torch.float32),
                             torch.arange(tile_w, device=dev, dtype=torch.float32),
                             indexing="ij")
     xp = tx.reshape(1, -1) + origins[:, 0:1]
     yp = ty.reshape(1, -1) + origins[:, 1:2]
-    d = proj.pano_to_ray(canvas["mode"], xp, yp, canvas["f_pan"], canvas["x0"], canvas["y0"])
+    d = proj.pano_to_ray(canvas["mode"], xp, yp, canvas["f_pan"], canvas["x0"], canvas["y0"],
+                         _t(canvas["R_ref"], dev))
     sl = sel.long()
     okf = sel_ok.float()
     R_s, K_s = R[sl], K[sl]  # (Tb, C, 3, 3)
@@ -207,22 +294,14 @@ def _render_tiles(fine4, R, K, gains, k1, sel, sel_ok, origins, canvas, tile_h, 
     u, v, front, cosang = proj.project_ray_to_camera(
         d[:, None], R_s, K_s, k1=None if k1 is None else k1[sl]
     )  # (Tb, C, P)
-    # jax.image.resize convention: original coordinate u sits at 2u + 0.5 on
-    # the fine grid; validity is judged in the original bounds
-    col4, _ = samp.sample_bilinear_indexed(
-        fine4, sl, torch.clamp(2.0 * u + 0.5, 0.0, 2 * W_ - 1.0),
-        torch.clamp(2.0 * v + 0.5, 0.0, 2 * H_ - 1.0),
-    )
-    valid = (u >= 0.0) & (u <= W_ - 1.0) & (v >= 0.0) & (v <= H_ - 1.0)
-    col4 = col4 * valid[..., None]
+    col4, valid = samp.sample_indexed(interp, images4, sl, u, v, fine4)
     wf = torch.clamp(col4[..., 3], min=0.0)
     w_ang = torch.where(front, cosang, torch.zeros_like(cosang)) ** angle_power
     w = w_ang * torch.clamp(wf, min=1e-4) * valid * front * okf[..., None]
     col = col4[..., :3] * g_s[:, :, None, :]
-    cols = col.reshape(Tb, C, tile_h, tile_w, 3)
-    ws = w.reshape(Tb, C, tile_h, tile_w)
-    tile = blend_ops.multiband_blend(cols, ws, bands=bands)
-    covered = ws.sum(1) > 1e-3
+    tile, wsum = _blend(col.reshape(Tb, C, tile_h, tile_w, 3), w.reshape(Tb, C, tile_h, tile_w),
+                        blend_mode, bands)
+    covered = wsum > 1e-3
     tile = tile * covered[..., None]
     return (torch.clamp(tile, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8), covered
 
@@ -231,34 +310,41 @@ def render_rotational(images, feathers, R, K, canvas: dict, gains=None,
                       blend_mode: str = "multiband", bands: int = 3, tile: tuple = (512, 512),
                       angle_power: float = 1.0, sizes=None, max_contributors=None,
                       interp: str = "bicubic2x", k1=None, tiles_per_batch: int = 8):
-    """Full spherical panorama: (panorama (Hc, Wc, 3) uint8, coverage (Hc, Wc)
-    bool) numpy. images (N, H, W, 3) / feathers (N, H, W) tensors; R, K,
-    gains, sizes, k1 numpy."""
-    if blend_mode != "multiband":
-        raise NotImplementedError(f"blend {blend_mode!r} is not ported yet (ROADMAP A11)")
-    if interp != "bicubic2x":
-        raise NotImplementedError(f"interpolation {interp!r} is not ported yet (ROADMAP A11)")
+    """Full rotational panorama: (panorama (Hc, Wc, 3) uint8, coverage (Hc,
+    Wc) bool) numpy. images (N, H, W, 3) / feathers (N, H, W) tensors; R, K,
+    gains, sizes, k1 numpy. blend_mode one of BLENDS, interp one of INTERPS.
+
+    The feather rides as a 4th channel so it shares the colour taps. With
+    bicubic2x the 2x Keys upsample runs once per image here, where the
+    reference resizes each tile's gathered contributors inside the tile
+    kernel (`render.py:350`); resizing is per image, so the numbers are the
+    same."""
+    if blend_mode not in BLENDS:
+        raise ValueError(f"unknown blend {blend_mode!r}; one of {BLENDS}")
+    if interp not in INTERPS:
+        raise ValueError(f"unknown interpolation {interp!r}; one of {INTERPS}")
     dev = images.device
-    n, H_, W_ = images.shape[:3]
+    n = images.shape[0]
     Hc, Wc = canvas["Hc"], canvas["Wc"]
     th, tw = tile
     if gains is None:
         gains = np.ones((n, 3), np.float32)
     if sizes is None:
-        sizes = np.tile(np.array([H_, W_], np.int32), (n, 1))
+        sizes = np.tile(np.array(images.shape[1:3], np.int32), (n, 1))
     C_arg = None if max_contributors is None else min(max_contributors, n)
     sel, sel_ok, origins = tile_contributors(canvas, R, K, sizes, (th, tw), C_arg, k1=k1,
                                              device=dev)
-    fine4 = samp.upsample2x_cubic(torch.cat([images, feathers[..., None]], dim=-1))
+    images4 = torch.cat([images, feathers[..., None]], dim=-1)
+    fine4 = samp.upsample2x_cubic(images4) if interp == "bicubic2x" else None
     R_d, K_d, g_d = _t(R, dev), _t(K, dev), _t(gains, dev)
     k1_d = None if k1 is None else _t(k1, dev)
     tiles, covs = [], []
     for s in range(0, len(sel), tiles_per_batch):
         e = s + tiles_per_batch
         t_u8, cov = _render_tiles(
-            fine4, R_d, K_d, g_d, k1_d, _t(sel[s:e], dev, torch.int32),
+            images4, fine4, R_d, K_d, g_d, k1_d, _t(sel[s:e], dev, torch.int32),
             _t(sel_ok[s:e], dev, torch.bool), _t(origins[s:e], dev), canvas, th, tw,
-            bands, angle_power, H_, W_,
+            blend_mode, bands, angle_power, interp,
         )
         tiles.append(t_u8.cpu().numpy())
         covs.append(cov.cpu().numpy())

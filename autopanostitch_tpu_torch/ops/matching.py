@@ -1,12 +1,16 @@
-"""Pooled global descriptor matching (port of the global path of
-`ops/matching.py`).
+"""Descriptor matching (port of `ops/matching.py`, float descriptors).
 
-`global_knn` IS kernel B1 (`kernels/knn.py`): the exact pooled k-NN with
-same-image and invalid rows masked. The ratio test runs on the device; the
-pair bookkeeping (`knn_votes`, `global_matches_to_pairs`) is host numpy,
-copied from the reference. The pairwise matcher (`match_pair`,
-`match_all_pairs`) and the approximate method are not ported yet (ROADMAP
-A9, A11).
+- Pooled global matching: `global_knn` IS kernel B1 (`kernels/knn.py`) in
+  its pooled mode, the exact k-NN with same-image and invalid rows masked;
+  the ratio test runs on the device; the pair bookkeeping (`knn_votes`,
+  `global_matches_to_pairs`) is host numpy, copied from the reference.
+- Pairwise matching: `two_nn`, `match_pair`, `match_pair_list` and
+  `match_all_pairs` run on B1's pair-list mode (`knn.knn_pairs`): a pair
+  list is one launch per memory-bounded chunk, and the ratio test, mutual
+  check and compaction are batched over the pairs on the device.
+
+Binary descriptors come with the corner detectors and the approximate
+method is not ported yet (ROADMAP A11.4, A11.5).
 """
 
 from __future__ import annotations
@@ -14,9 +18,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from autopanostitch_tpu_torch.kernels.knn import knn
+from autopanostitch_tpu_torch.kernels.knn import knn, knn_pairs
 
 _BIG = np.float32(1e18)
+_PAIR_CHUNK_BYTES = 1 << 30  # bound of `match_pair_list`'s working set per chunk
+# per pair and descriptor slot: the 2-NN both ways (32 B) and the
+# temporaries of `_match_from_nn` (distances, long indices, the sort)
+_PAIR_BYTES_PER_SLOT = 128
 
 
 def global_knn(desc, mask, image_id, k: int = 4, method: str = "exhaustive"):
@@ -54,6 +62,118 @@ def global_match_stack(desc, mask, k: int = 4, method: str = "exhaustive",
                                  k=k, method=method)
     best, accepted = global_ratio_test(nn_idx, nn_dist, ratio=ratio)
     return nn_idx, nn_dist, best, accepted
+
+
+def _pair_stack(desc_a, mask_a, desc_b, mask_b):
+    """Two descriptor sets as a (2, K, D) slot stack, the shorter padded
+    with invalid slots (they sort after every real slot, valid or not)."""
+    K = max(desc_a.shape[0], desc_b.shape[0])
+
+    def pad(d, m):
+        extra = K - d.shape[0]
+        return (torch.nn.functional.pad(d.float(), (0, 0, 0, extra)),
+                torch.nn.functional.pad(m, (0, extra)))
+
+    (da, ma), (db, mb) = pad(desc_a, mask_a), pad(desc_b, mask_b)
+    return torch.stack([da, db]), torch.stack([ma, mb])
+
+
+def two_nn(desc_q, mask_q, desc_t, mask_t):
+    """Exact 2-nearest-neighbour in SSD space. Returns (idx1 (Mq,), d1, d2):
+    best target index and the best and second squared distances. Only
+    invalid targets are masked in the search; invalid queries keep their
+    true idx1 and get d1 = d2 = 1e18 (`two_nn` of the reference)."""
+    desc, valid = _pair_stack(desc_q, mask_q, desc_t, mask_t)
+    pairs = torch.tensor([[0, 1]], dtype=torch.int32, device=desc.device)
+    idx, dist = knn_pairs(desc.contiguous(), valid, pairs, 2)
+    Mq = desc_q.shape[0]
+    idx, dist = idx[0, 0, :Mq], dist[0, 0, :Mq]
+    big = torch.full_like(dist[:, 0], float(_BIG))
+    return (idx[:, 0], torch.where(mask_q, dist[:, 0], big),
+            torch.where(mask_q, dist[:, 1], big))
+
+
+def _match_from_nn(idx, dist, mask_a, ratio: float, max_matches: int, threshold: float):
+    """Ratio test, threshold, mutual check and compaction of a batch of
+    pairs from their 2-NN both ways: idx/dist (P, 2, K, 2) as `knn_pairs`
+    gives them (side 0 = a -> b, side 1 = b -> a), mask_a (P, Ka) the valid
+    slots of image a (Ka <= K: side 0 is read for a's Ka queries). Returns
+    (idx (P, M, 2) int32, m (P, M) bool, n (P,) int32), the reference's
+    `match_pair` per pair."""
+    Ka = mask_a.shape[1]
+    big = float(_BIG)
+    ia2b = idx[:, 0, :Ka, 0].long()
+    d1 = torch.where(mask_a, dist[:, 0, :Ka, 0], torch.full_like(dist[:, 0, :Ka, 0], big))
+    d2 = torch.where(mask_a, dist[:, 0, :Ka, 1], torch.full_like(dist[:, 0, :Ka, 1], big))
+    ib2a = idx[:, 1, :, 0].long()
+    # the reference squares a float32 ratio (a traced scalar in its jit)
+    r = torch.tensor(ratio, dtype=torch.float32, device=dist.device)
+    pass_ratio = d1 < (r * r) * d2
+    mutual = torch.gather(ib2a, 1, ia2b) == torch.arange(Ka, device=idx.device)[None]
+    ok = pass_ratio & (d1 <= threshold) & mutual & mask_a & (d1 < big)
+    # compact to the front by ascending distance; the sort is STABLE, so the
+    # rows that fail (all at BIG) keep index order, as jnp.argsort does
+    order = torch.sort(torch.where(ok, d1, torch.full_like(d1, big)), dim=1, stable=True)[1]
+    take = min(max_matches, Ka)
+    sel = order[:, :take]
+    out = torch.stack([sel, torch.gather(ia2b, 1, sel)], -1).to(torch.int32)
+    m = torch.gather(ok, 1, sel)
+    if take < max_matches:
+        out = torch.nn.functional.pad(out, (0, 0, 0, max_matches - take))
+        m = torch.nn.functional.pad(m, (0, max_matches - take))
+    out = torch.where(m[..., None], out, torch.zeros_like(out))
+    return out, m, ok.sum(1).to(torch.int32)
+
+
+def match_pair(desc_a, mask_a, desc_b, mask_b, ratio: float = 0.6, max_matches: int = 512,
+               threshold: float = float("inf")):
+    """Match two float descriptor sets: 2-NN both ways, Lowe ratio on
+    squared distances (d1 < r^2 d2), SSD threshold, mutual nearest check,
+    compaction by ascending distance. Returns (idx (max_matches, 2) int32
+    [ia, ib] padded 0, m (max_matches,) bool, n () int32)."""
+    desc, valid = _pair_stack(desc_a, mask_a, desc_b, mask_b)
+    pairs = torch.tensor([[0, 1]], dtype=torch.int32, device=desc.device)
+    idx, dist = knn_pairs(desc.contiguous(), valid, pairs, 2)
+    out, m, n = _match_from_nn(idx, dist, mask_a[None], ratio, max_matches, threshold)
+    return out[0], m[0], n[0]
+
+
+def match_pair_list(desc, mask, pairs, ratio: float = 0.6, max_matches: int = 512,
+                    threshold: float = float("inf")):
+    """Pairwise matching of an explicit (P, 2) image pair list. desc (N, K,
+    D), mask (N, K), pairs (P, 2) int on the same device. The pairs go to
+    kernel B1 in chunks whose working set stays near `_PAIR_CHUNK_BYTES`
+    (one launch up to ~4000 pairs of 2048 slots; the reference's 16-pair
+    `lax.scan` chunks were TPU memory shaping). Returns (idx (P,
+    max_matches, 2), m (P, max_matches), counts (P,)) aligned with the
+    pair list."""
+    pairs = torch.as_tensor(pairs, dtype=torch.int32, device=desc.device).contiguous()
+    if pairs.shape[0] == 0:
+        return (torch.zeros((0, max_matches, 2), dtype=torch.int32, device=desc.device),
+                torch.zeros((0, max_matches), dtype=torch.bool, device=desc.device),
+                torch.zeros((0,), dtype=torch.int32, device=desc.device))
+    desc = desc.float().contiguous()
+    chunk = max(1, _PAIR_CHUNK_BYTES // (_PAIR_BYTES_PER_SLOT * desc.shape[1]))
+    outs = []
+    for s in range(0, pairs.shape[0], chunk):
+        cp = pairs[s : s + chunk]
+        idx, dist = knn_pairs(desc, mask, cp, 2)
+        outs.append(_match_from_nn(idx, dist, mask[cp[:, 0].long()], ratio, max_matches,
+                                   threshold))
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def match_all_pairs(desc, mask, ratio: float = 0.6, max_matches: int = 512,
+                    threshold: float = float("inf")):
+    """Pairwise matching over every (i < j) image pair. Returns (pairs (P, 2)
+    int32 numpy, idx (P, M, 2), m (P, M), counts (P,)), P = N(N-1)/2 in
+    lexicographic order."""
+    N = desc.shape[0]
+    iu, ju = np.triu_indices(N, 1)
+    pairs = np.stack([iu, ju], -1).astype(np.int32)
+    idx, m, n = match_pair_list(desc, mask, pairs, ratio=ratio, max_matches=max_matches,
+                                threshold=threshold)
+    return pairs, idx, m, n
 
 
 # ---------------------------------------------------------------------------

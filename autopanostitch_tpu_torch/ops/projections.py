@@ -1,23 +1,26 @@
-"""Spherical panorama surface <-> world rays, camera projection and k1
-distortion (port of the spherical branch of `ops/projections.py`).
+"""Panorama surface <-> world rays, camera projection and k1 distortion
+(port of `ops/projections.py`).
 
-The other surfaces (cylindrical, planar, stereographic) are not ported
-yet (ROADMAP A11); asking for one raises NotImplementedError.
+Five projections, as the reference renderer: planar (= perspective),
+cylindrical, spherical, equirectangular (spherical with full-range bounds)
+and stereographic. Planar and stereographic work in the frame of a
+reference camera R_ref. World->camera rotation R, camera looking down +Z,
+x right, y down; pano pixel xp sits at surface coordinate x0 + xp / f_pan.
 """
 
 from __future__ import annotations
 
 import torch
 
-SPHERICAL = ("spherical", "equirectangular")
+PROJECTIONS = ("planar", "perspective", "cylindrical", "spherical", "equirectangular",
+               "stereographic")
+ANGULAR = ("cylindrical", "spherical", "equirectangular")
+REF_FRAME = ("planar", "perspective", "stereographic")
 
 
 def check_mode(mode: str) -> None:
-    if mode not in SPHERICAL:
-        raise NotImplementedError(
-            f"projection {mode!r} is not ported yet (ROADMAP A11); "
-            f"the port renders {SPHERICAL}"
-        )
+    if mode not in PROJECTIONS:
+        raise ValueError(f"unknown projection mode {mode!r}")
 
 
 def normalize_rays(d):
@@ -25,23 +28,56 @@ def normalize_rays(d):
     return d / torch.clamp(n, min=1e-8)
 
 
-def pano_to_ray(mode: str, xp, yp, f_pan, x0, y0):
-    """Pano pixel grid -> unit world rays (..., 3)."""
+def pano_to_ray(mode: str, xp, yp, f_pan, x0, y0, R_ref=None):
+    """Pano pixel grid -> unit world rays (..., 3). R_ref (3, 3) world->ref
+    rotation, read by the planar and stereographic modes."""
     check_mode(mode)
     u = x0 + xp / f_pan
     v = y0 + yp / f_pan
-    cphi = torch.cos(v)
-    d = torch.stack([cphi * torch.sin(u), torch.sin(v), cphi * torch.cos(u)], dim=-1)
+    if mode == "cylindrical":
+        d = torch.stack([torch.sin(u), v, torch.cos(u)], dim=-1)
+    elif mode in ("spherical", "equirectangular"):
+        cphi = torch.cos(v)
+        d = torch.stack([cphi * torch.sin(u), torch.sin(v), cphi * torch.cos(u)], dim=-1)
+    elif mode in ("planar", "perspective"):
+        d = torch.stack([u, v, torch.ones_like(u)], dim=-1) @ R_ref  # R_ref^T @ d
+    else:  # stereographic: inverse projection from the plane tangent at +Z
+        r2 = u * u + v * v
+        denom = 1.0 + r2
+        d = torch.stack([2.0 * u / denom, 2.0 * v / denom, (1.0 - r2) / denom], dim=-1) @ R_ref
     return normalize_rays(d)
 
 
-def ray_to_pano(mode: str, d):
-    """World rays -> surface coordinates (u, v) and validity."""
+def ray_to_pano(mode: str, d, R_ref=None):
+    """World rays -> surface coordinates (u, v) and validity; planar and
+    stereographic rotate the rays into the R_ref frame first."""
     check_mode(mode)
+    if mode in REF_FRAME:
+        d = d @ R_ref.transpose(-1, -2)  # R_ref @ d
     x, y, z = d[..., 0], d[..., 1], d[..., 2]
-    u = torch.atan2(x, z)
-    v = torch.atan2(y, torch.sqrt(x * x + z * z))
-    return u, v, torch.ones_like(u, dtype=torch.bool)
+    if mode == "cylindrical":
+        u = torch.atan2(x, z)
+        rho = torch.sqrt(x * x + z * z)
+        v = y / torch.clamp(rho, min=1e-8)
+        valid = rho > 1e-8
+    elif mode in ("spherical", "equirectangular"):
+        u = torch.atan2(x, z)
+        v = torch.atan2(y, torch.sqrt(x * x + z * z))
+        valid = torch.ones_like(u, dtype=torch.bool)
+    elif mode in ("planar", "perspective"):
+        valid = z > 1e-4
+        zs = torch.clamp(z, min=1e-4)
+        u = x / zs
+        v = y / zs
+    else:
+        n = torch.sqrt(x * x + y * y + z * z)
+        xn, yn, zn = x / n, y / n, z / n
+        denom = 1.0 + zn
+        valid = denom > 1e-6
+        ds = torch.clamp(denom, min=1e-6)
+        u = xn / ds
+        v = yn / ds
+    return u, v, valid
 
 
 def undistort_pixels(u, v, k1, cx, cy):

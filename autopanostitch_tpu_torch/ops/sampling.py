@@ -1,5 +1,11 @@
-"""Image sampling, explicit separable resizing and feather weights (port of
-`ops/sampling.py` plus the `jax.image.resize` calls of the main path).
+"""Image sampling, homography warping, output limits, explicit separable
+resizing and feather weights (port of `ops/sampling.py` plus the
+`jax.image.resize` calls of the main path).
+
+Samplers take 0-based pixel coordinates (pixel centres at integers), gather
+every tap through a clamped index (the reference's `_gather_2d`) and return
+0 outside the image with a validity mask. The `*_indexed` forms sample
+image idx[...] of a stack with the image axis folded into the gather.
 
 `jax.image.resize` is not torch's `F.interpolate`: its cubic is Keys
 a = -0.5 (torch's bicubic is a = -0.75), and its downsampling antialiases
@@ -73,35 +79,88 @@ def upsample2x_cubic(images: torch.Tensor) -> torch.Tensor:
     return resize(images, (N, 2 * H, 2 * W, C), "cubic")
 
 
-def sample_bilinear(img, x, y):
-    """Bilinear sampling of (H, W, C) at (...) float coords; out-of-bounds
-    samples are 0. Returns (values (..., C), valid (...))."""
-    return sample_bilinear_indexed(img[None], torch.zeros((), dtype=torch.long,
-                                                          device=img.device), x, y)
+def _tap(flat, base, xi, yi, H: int, W: int):
+    """Clamped integer gather from the (N * H * W, C) view of a stack."""
+    return flat[base + yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)]
+
+
+def _flat(imgs, idx):
+    N, H, W, C = imgs.shape
+    return imgs.reshape(N * H * W, C), (idx.long() * (H * W))[..., None], H, W
 
 
 def sample_bilinear_indexed(imgs, idx, x, y):
     """Bilinear sampling of image idx[...] of the stack imgs (N, H, W, C) at
-    (..., P) coords — `sample_bilinear` per image with the image axis
-    written out (idx (...,) broadcasts against x's leading dims)."""
-    N, H, W, C = imgs.shape
-    flat = imgs.reshape(N * H * W, C)
+    (..., P) coords (idx (...,) broadcasts against x's leading dims).
+    Returns (values (..., P, C), valid (..., P))."""
+    flat, base, H, W = _flat(imgs, idx)
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     fx = (x - x0)[..., None]
     fy = (y - y0)[..., None]
     x0i = x0.long()
     y0i = y0.long()
-    base = (idx.long() * (H * W))[..., None]
-
-    def tap(xi, yi):
-        return flat[base + yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)]
-
-    top = tap(x0i, y0i) * (1.0 - fx) + tap(x0i + 1, y0i) * fx
-    bot = tap(x0i, y0i + 1) * (1.0 - fx) + tap(x0i + 1, y0i + 1) * fx
+    top = _tap(flat, base, x0i, y0i, H, W) * (1.0 - fx) + _tap(flat, base, x0i + 1, y0i, H, W) * fx
+    bot = (_tap(flat, base, x0i, y0i + 1, H, W) * (1.0 - fx)
+           + _tap(flat, base, x0i + 1, y0i + 1, H, W) * fx)
     out = top * (1.0 - fy) + bot * fy
     valid = (x >= 0.0) & (x <= W - 1.0) & (y >= 0.0) & (y <= H - 1.0)
     return out * valid[..., None], valid
+
+
+def sample_nearest_indexed(imgs, idx, x, y):
+    """Nearest-neighbour form of `sample_bilinear_indexed`; torch.round
+    rounds half to even like jnp.round. Valid within half a pixel."""
+    flat, base, H, W = _flat(imgs, idx)
+    out = _tap(flat, base, torch.round(x).long(), torch.round(y).long(), H, W)
+    valid = (x >= -0.5) & (x <= W - 0.5) & (y >= -0.5) & (y <= H - 0.5)
+    return out * valid[..., None], valid
+
+
+def sample_bicubic_indexed(imgs, idx, x, y):
+    """Keys (a = -0.5) bicubic form of `sample_bilinear_indexed`: 16 clamped
+    taps, summed in the reference's order (rows of 4 weighted by x, then
+    weighted by y)."""
+    flat, base, H, W = _flat(imgs, idx)
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = x - x0f
+    fy = y - y0f
+    x0 = x0f.long()
+    y0 = y0f.long()
+    out = torch.zeros(x.shape + (imgs.shape[-1],), dtype=imgs.dtype, device=imgs.device)
+    for j in range(-1, 3):
+        wy = _cubic_kernel(fy - j)[..., None]
+        row = torch.zeros_like(out)
+        for i in range(-1, 3):
+            row = row + _cubic_kernel(fx - i)[..., None] * _tap(flat, base, x0 + i, y0 + j, H, W)
+        out = out + wy * row
+    valid = (x >= 0.0) & (x <= W - 1.0) & (y >= 0.0) & (y <= H - 1.0)
+    return out * valid[..., None], valid
+
+
+_INDEXED = {"bilinear": sample_bilinear_indexed, "nearest": sample_nearest_indexed,
+            "bicubic": sample_bicubic_indexed}
+
+
+def _single(sampler, img, x, y):
+    return sampler(img[None], torch.zeros((), dtype=torch.long, device=img.device), x, y)
+
+
+def sample_bilinear(img, x, y):
+    """Bilinear sampling of (H, W, C) at (...) float coords; out-of-bounds
+    samples are 0. Returns (values (..., C), valid (...))."""
+    return _single(sample_bilinear_indexed, img, x, y)
+
+
+def sample_nearest(img, x, y):
+    """Nearest-neighbour sampling of (H, W, C) with out-of-bounds masking."""
+    return _single(sample_nearest_indexed, img, x, y)
+
+
+def sample_bicubic(img, x, y):
+    """Keys bicubic sampling of (H, W, C) with out-of-bounds masking."""
+    return _single(sample_bicubic_indexed, img, x, y)
 
 
 def _cubic_kernel(t, a: float = -0.5):
@@ -112,6 +171,85 @@ def _cubic_kernel(t, a: float = -0.5):
     w1 = (a + 2.0) * at3 - (a + 3.0) * at2 + 1.0
     w2 = a * at3 - 5.0 * a * at2 + 8.0 * a * at - 4.0 * a
     return torch.where(at <= 1.0, w1, torch.where(at < 2.0, w2, torch.zeros_like(at)))
+
+
+def sample_indexed(method: str, imgs, idx, x, y, fine=None):
+    """Sample image idx[...] of imgs with `method` ('nearest' | 'bilinear' |
+    'bicubic' | 'bicubic2x'). bicubic2x takes bilinear taps on `fine`, the
+    2x Keys upsample of imgs (`upsample2x_cubic`), where the
+    jax.image.resize convention puts original coordinate u at 2u + 0.5;
+    validity is judged in the original bounds."""
+    if method == "bicubic2x":
+        H, W = imgs.shape[1:3]
+        col, _ = sample_bilinear_indexed(fine, idx, torch.clamp(2.0 * x + 0.5, 0.0, 2 * W - 1.0),
+                                         torch.clamp(2.0 * y + 0.5, 0.0, 2 * H - 1.0))
+        valid = (x >= 0.0) & (x <= W - 1.0) & (y >= 0.0) & (y <= H - 1.0)
+        return col * valid[..., None], valid
+    if method not in _INDEXED:
+        raise ValueError(f"unknown interpolation {method!r}")
+    return _INDEXED[method](imgs, idx, x, y)
+
+
+def homography_coords(H_inv, out_h: int, out_w: int, x_offset=0.0, y_offset=0.0):
+    """Source coordinates (xs, ys) (..., out_h, out_w) of the canvas pixels
+    of an inverse-map warp: canvas pixel (xc, yc) is world point
+    (xc + x_offset, yc + y_offset), mapped through H_inv (..., 3, 3)."""
+    dev = H_inv.device
+    yc, xc = torch.meshgrid(torch.arange(out_h, device=dev, dtype=torch.float32),
+                            torch.arange(out_w, device=dev, dtype=torch.float32), indexing="ij")
+    xw = xc + x_offset
+    yw = yc + y_offset
+    h = H_inv[..., None, None, :, :]
+    denom = h[..., 2, 0] * xw + h[..., 2, 1] * yw + h[..., 2, 2]
+    denom = torch.where(denom.abs() < 1e-10, torch.full_like(denom, 1e-10), denom)
+    xs = (h[..., 0, 0] * xw + h[..., 0, 1] * yw + h[..., 0, 2]) / denom
+    ys = (h[..., 1, 0] * xw + h[..., 1, 1] * yw + h[..., 1, 2]) / denom
+    return xs, ys
+
+
+def warp_homography(img, H_inv, out_h: int, out_w: int, x_offset=0.0, y_offset=0.0,
+                    method: str = "bilinear"):
+    """Inverse-map warp of img (H, W, C) by homography onto an (out_h,
+    out_w) canvas (see `homography_coords`). Returns (warped (out_h, out_w,
+    C), valid (out_h, out_w))."""
+    xs, ys = homography_coords(H_inv, out_h, out_w, x_offset, y_offset)
+    fine = upsample2x_cubic(img[None]) if method == "bicubic2x" else None
+    return sample_indexed(method, img[None], torch.zeros((), dtype=torch.long, device=img.device),
+                          xs, ys, fine)
+
+
+def output_limits(H, h, w, n_samples: int = 64):
+    """Bounding box (x_min, x_max, y_min, y_max) of an (h, w) image under
+    homography H, from n_samples points per side; points that map to
+    infinity are left out."""
+    return tuple(output_limits_batch(H[None], torch.tensor([[h, w]], device=H.device),
+                                     n_samples)[0])
+
+
+def output_limits_batch(Hs, sizes, n_samples: int = 64):
+    """(N, 3, 3) homographies x (N, 2 [h, w]) sizes -> (N, 4)
+    [xmin, xmax, ymin, ymax]."""
+    dev = Hs.device
+    t = torch.linspace(0.0, 1.0, n_samples, device=dev)
+    h = sizes[:, 0].float()[:, None]
+    w = sizes[:, 1].float()[:, None]
+    xs = t * (w - 1)
+    ys = t * (h - 1)
+    zx, zy = torch.zeros_like(xs), torch.zeros_like(ys)
+    px = torch.cat([xs, xs, zy, (w - 1.0).expand_as(ys)], 1)
+    py = torch.cat([zx, (h - 1.0).expand_as(xs), ys, ys], 1)
+    ph = torch.stack([px, py, torch.ones_like(px)], -1)  # (N, 4n, 3)
+    out = ph @ Hs.transpose(1, 2)
+    wz = out[..., 2]
+    ok = wz.abs() > 1e-9
+    xy = out[..., :2] / torch.where(ok, wz, torch.ones_like(wz))[..., None]
+    big = torch.full_like(wz, 1e9)
+    return torch.stack([
+        torch.where(ok, xy[..., 0], big).min(1).values,
+        torch.where(ok, xy[..., 0], -big).max(1).values,
+        torch.where(ok, xy[..., 1], big).min(1).values,
+        torch.where(ok, xy[..., 1], -big).max(1).values,
+    ], -1)
 
 
 def feather_weights(h: int, w: int, device=None):

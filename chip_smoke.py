@@ -10,13 +10,28 @@ Phases, each printing its own lines:
   1. environment: the card's name and power limit (nvidia-smi), torch, CUDA;
   2. build the CUDA kernels from `autopanostitch_tpu_torch/csrc/`;
   3. B1 (pooled exact k-NN) against its plain version at the slice's shapes;
+  3b. B1's pair-list mode against its plain version at the pairwise
+     rescue's shape (25 images x 2048 slots, all 300 pairs, both ways);
   4. B2 (SIFT window gather) against its plain version, bit-exact;
-  5. the slice: the default-config `stitch` of a synthetic 20-view 800x600
-     360-degree yaw ring (f = 600 px) on the GPU, with launch counts of both
-     kernels, the focal error, and the PSNR against the ground truth.
-Then a JSON line of the kernels, the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}. Any failure exits non-zero without that line.
-This script imports nothing of JAX.
+  5. the default-config `stitch` of a synthetic 20-view 800x600 360-degree
+     yaw ring (f = 600 px): one panorama, focal error, PSNR;
+  6. a multi-panorama folder: two interleaved 12-view 800x600 rings and a
+     distractor view, ingested at 400 px with the originals kept, stitched
+     with the default config in the spherical and cylindrical projections
+     (pairwise rescue + re-extracting second pass): two panoramas, their
+     members, focal errors and PSNRs;
+  7. a planar scan: a 3x3 grid of 800x600 crops with ~35 % overlap,
+     `force_planar_scan` and the linear blend: one panorama of 9, the
+     corner error of the homographies, PSNR against the texture.
+Phases 5-7 each count the kernels' launches from 0 and fail if a kernel of
+the path never launched. Then a JSON line of the kernels, the nvidia-smi
+line, and as the last line {"ok": true, "device": {...}}. Any failure exits
+non-zero without that line. This script imports nothing of JAX.
+
+The PSNR gates of phases 6 and 7 are the JAX package's own results on the
+same scenes (on a CPU) less 3 dB: the lowest of 49.74 / 50.50 dB spherical
+and 49.81 / 50.36 dB cylindrical (JAX_MULTIPANO_PSNR), and 57.08 dB planar
+(JAX_PLANAR_PSNR).
 """
 
 from __future__ import annotations
@@ -34,6 +49,8 @@ sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(HERE, "tests"))
 
 REHEARSE = "--rehearse" in sys.argv[1:]
+JAX_MULTIPANO_PSNR = 49.74  # lowest ring/projection PSNR of the JAX package, dB
+JAX_PLANAR_PSNR = 57.08
 
 
 def log(msg: str) -> None:
@@ -126,6 +143,37 @@ def phase_b1(dev, F: int, n_img: int):
     return rec
 
 
+def phase_b1_pairs(dev, n_img: int, K: int):
+    """B1 pair-list mode vs plain on every pair of n_img images of K slots,
+    both directions. Returns (max |dist diff|, kernel ms, plain ms)."""
+    import torch
+
+    from autopanostitch_tpu_torch.kernels import knn as KN
+
+    rng = np.random.default_rng(1)
+    base = rng.standard_normal((K, 128)).astype(np.float32)
+    d = np.stack([base[rng.permutation(K)] + 0.6 * rng.standard_normal((K, 128)).astype(np.float32)
+                  for _ in range(n_img)])
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    desc = torch.as_tensor(d, device=dev)
+    valid = torch.as_tensor(rng.random((n_img, K)) > 0.1, device=dev)
+    pairs = torch.as_tensor(np.stack(np.triu_indices(n_img, 1), -1).astype(np.int32), device=dev)
+    idx_k, d_k = KN.knn_pairs(desc, valid, pairs, 2)
+    idx_p, d_p = KN.knn_pairs_plain(desc, valid, pairs, 3)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    err, bad = knn_agreement(idx_k.reshape(-1, 2), d_k.reshape(-1, 2), idx_p.reshape(-1, 3),
+                             d_p.reshape(-1, 3))
+    ms = time_ms(lambda: KN.knn_pairs(desc, valid, pairs, 2), dev)
+    plain_ms = time_ms(lambda: KN.knn_pairs_plain(desc, valid, pairs, 2), dev)
+    log(f"B1 pairs: {n_img} images x {K} slots, {pairs.shape[0]} pairs x 2 directions, k=2 "
+        f"max|dist diff|={err:.3e} idx mismatches outside ties={bad} "
+        f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+    if bad or not err <= 1e-4:
+        raise AssertionError("B1 pair mode disagrees with its plain version")
+    return err, ms, plain_ms
+
+
 def phase_b2(dev, G: int, S3: int, H: int, W: int):
     """B2 kernel vs plain at the slice's window shapes (bit-exact)."""
     import torch
@@ -173,17 +221,22 @@ def ring_scene(n: int, f: float, w: int, h: int, env_hw):
     return iset, env, np.stack(Rs)
 
 
-def pano_psnr(res, env, Rs, f_true: float, n_views: int):
-    """(PSNR dB against the gauge-aligned ground truth, max focal error %),
-    computed as bench._pano_psnr does."""
+def _np(x):
+    """numpy view of a torch tensor (any device) or an array."""
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+
+def pano_psnr(pr, env, Rs, f_true: float, mode: str = "spherical"):
+    """(PSNR dB of panorama `pr` in `mode` against the gauge-aligned ground
+    truth, max focal error %), computed as bench._pano_psnr does. Rs are
+    the true rotations of the panorama's members, in member order."""
     import synthdata
 
-    pr = res.panoramas[0]
-    pano = pr["projections"]["spherical"]
-    cover = pr["coverage"]
-    canvas = pr["canvas"]["spherical"]
-    R_est = pr["R_render"]
-    M = sum(R_est[i].T @ Rs[i] for i in range(n_views))
+    pano = pr["projections"][mode]
+    cover = pr["coverage_by_mode"][mode]
+    canvas = pr["canvas"][mode]
+    R_est = np.asarray(pr["R_render"])
+    M = sum(R_est[i].T @ Rs[i] for i in range(len(Rs)))
     U, _, Vt = np.linalg.svd(M)
     G = U @ Vt
     if np.linalg.det(G) < 0:
@@ -194,37 +247,115 @@ def pano_psnr(res, env, Rs, f_true: float, n_views: int):
     ys, xs = ys[sub], xs[sub]
     u = canvas["x0"] + xs / canvas["f_pan"]
     v = canvas["y0"] + ys / canvas["f_pan"]
-    d = np.stack([np.cos(v) * np.sin(u), np.sin(v), np.cos(v) * np.cos(u)], -1)
+    if mode == "cylindrical":
+        d = np.stack([np.sin(u), v, np.cos(u)], -1)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    else:
+        d = np.stack([np.cos(v) * np.sin(u), np.sin(v), np.cos(v) * np.cos(u)], -1)
     gt = synthdata.env_lookup(env, d @ G, interp="bicubic")
     err = pano[ys, xs].astype(np.float64) / 255.0 - gt
     psnr = 10 * np.log10(1.0 / max(np.mean(err**2), 1e-12))
-    f_est = pr["ba"]["cameras"].f.cpu().numpy()
+    f_est = _np(pr["ba"]["cameras"].f)
     return psnr, float(np.abs(f_est - f_true).max() / f_true * 100)
 
 
+def view_ring(env, n: int, f: float, w: int, h: int):
+    """n pinhole views of a 360-degree yaw ring: (views, true R (n, 3, 3))."""
+    import synthdata
+
+    Rs = [synthdata.rot_y(i * 2 * np.pi / n).T for i in range(n)]
+    return [synthdata.render_pinhole_from_equirect(env, R, f, w, h, "bicubic") for R in Rs], \
+        np.stack(Rs)
+
+
+def multipano_scene(n: int, f: float, w: int, h: int, env_hw, limit: int):
+    """Two interleaved n-view rings (textures 7 and 8) and one distractor
+    view (texture 9), ingested at `limit` px with the originals kept, as
+    `api.image_set_from_arrays` does for a mixed-resolution folder.
+    Returns (ImageSet, truth) with truth = [(global indices, env, Rs)] per
+    ring."""
+    import synthdata
+
+    from autopanostitch_tpu_torch import api
+
+    envs = [synthdata.smooth_texture(s, *env_hw) for s in (7, 8)]
+    rings = [view_ring(e, n, f, w, h) for e in envs]
+    views = [v for pair in zip(rings[0][0], rings[1][0]) for v in pair]
+    env_c = synthdata.smooth_texture(9, *env_hw)
+    views.append(synthdata.render_pinhole_from_equirect(env_c, synthdata.rot_x(0.4).T, f, w, h,
+                                                        "bicubic"))
+    iset = api.image_set_from_arrays(views, height_limit=limit, width_limit=limit,
+                                          keep_originals=True)
+    truth = [(np.arange(r, 2 * n, 2), envs[r], rings[r][1]) for r in range(2)]
+    return iset, truth
+
+
+def multipano_metrics(res, truth, f_true: float, modes):
+    """Per ring: (members equal, focal error %, {mode: PSNR dB})."""
+    out = []
+    for idx, env, Rs in truth:
+        pr = next((p for p in res.panoramas if set(np.asarray(p["members"])) == set(idx)), None)
+        if pr is None:
+            out.append((False, None, {}))
+            continue
+        psnr = {}
+        for mode in modes:
+            psnr[mode], ferr = pano_psnr(pr, env, Rs, f_true, mode)
+        out.append((True, ferr, psnr))
+    return out
+
+
+def planar_scene(w: int, h: int, overlap: float, seed: int = 5):
+    """3x3 grid of w x h crops of `synthdata.texture` overlapping by
+    `overlap` in each direction. Returns (ImageSet, texture, offsets (9, 2))."""
+    import synthdata
+
+    from autopanostitch_tpu_torch.api import ImageSet
+
+    sx, sy = round(w * (1 - overlap)), round(h * (1 - overlap))
+    env = synthdata.texture(seed, h + 2 * sy, w + 2 * sx)
+    offs = np.array([(c * sx, r * sy) for r in range(3) for c in range(3)], np.float64)
+    views = synthdata.planar_crops(env, [(int(x), int(y), w, h) for x, y in offs])
+    stack = (np.stack(views) * 255 + 0.5).astype(np.uint8)
+    sizes = np.tile(np.array([h, w], np.int32), (9, 1))
+    return ImageSet(images=stack, sizes=sizes, names=[f"p{k}" for k in range(9)]), env, offs
+
+
+def planar_metrics(pr, env, offs, w: int, h: int):
+    """(max corner error px of H_abs against the true translations, PSNR dB
+    of the planar panorama against the texture over covered pixels)."""
+    import synthdata
+
+    H = np.asarray(pr["H_abs"], np.float64)
+    a = int(pr["anchor"])
+    corners = np.array([[0, 0, 1], [w - 1, 0, 1], [0, h - 1, 1], [w - 1, h - 1, 1]], np.float64)
+    err = 0.0
+    for k in range(len(offs)):
+        p = corners @ H[k].T
+        p = p[:, :2] / p[:, 2:]
+        err = max(err, float(np.abs(p - (corners[:, :2] + offs[k] - offs[a])).max()))
+    pano, cover = pr["projections"]["planar"], pr["coverage_by_mode"]["planar"]
+    x0, y0 = pr["offset"]
+    s = pr["scale"]
+    ys, xs = np.nonzero(cover)
+    gt = synthdata._bilinear_np(env, (xs + x0) / s + offs[a][0], (ys + y0) / s + offs[a][1])
+    e = pano[ys, xs].astype(np.float64) / 255.0 - gt
+    return err, 10 * np.log10(1.0 / max(np.mean(e**2), 1e-12))
+
+
 def phase_slice(dev, n: int, f_true: float, w: int, h: int, env_hw):
-    from autopanostitch_tpu_torch import api, kernels
-    from autopanostitch_tpu_torch.models.pipeline import StageTimer
+    from autopanostitch_tpu_torch.api import StitchConfig
 
     t0 = time.perf_counter()
     iset, env, Rs = ring_scene(n, f_true, w, h, env_hw)
     log(f"slice: scene {n} views {w}x{h} f={f_true} built in {time.perf_counter() - t0:.1f} s")
-    timer = StageTimer(dev)
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = api.stitch(iset, api.StitchConfig(), seed=0, device=str(dev), timer=timer)
-    wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    stages = timer.report()
-    log("slice: stage wall s " + json.dumps({k: round(v, 4) for k, v in stages.items()})
-        + f" total {wall:.3f}")
-    log(f"slice: kernel launches in the stitch {json.dumps(counts)}")
+    res, counts = run_stitch("slice", iset, StitchConfig(), dev)
     if len(res.panoramas) != 1 or len(res.panoramas[0]["members"]) != n:
         raise AssertionError(f"expected one {n}-view panorama, got components {res.components}")
     pano = res.panoramas[0]["panorama"]
     if not (pano.ndim == 3 and pano.shape[2] == 3 and pano.dtype == np.uint8):
         raise AssertionError(f"bad panorama {pano.shape} {pano.dtype}")
-    psnr, ferr = pano_psnr(res, env, Rs, f_true, n)
+    psnr, ferr = pano_psnr(res.panoramas[0], env, Rs, f_true)
     acc = int(np.asarray(res.graph.accepted).sum())
     log(f"slice: 1 panorama of {n}, canvas {pano.shape[:2]}, accepted pairs {acc}/"
         f"{len(res.graph.pairs)}, max focal error {ferr:.4f} %, PSNR {psnr:.3f} dB")
@@ -232,8 +363,86 @@ def phase_slice(dev, n: int, f_true: float, w: int, h: int, env_hw):
         raise AssertionError(f"focal error {ferr:.3f} % >= 1 %")
     if not psnr >= 40.0:
         raise AssertionError(f"PSNR {psnr:.2f} dB < 40 dB")
-    if not (counts["knn"] > 0 and counts["window_gather"] > 0) and dev.type == "cuda":
-        raise AssertionError(f"a kernel of the path never launched: {counts}")
+    require_launches("slice", counts, ("knn", "window_gather"), dev)
+    return counts
+
+
+def run_stitch(label: str, iset, cfg, dev):
+    """`api.stitch` with the kernels' launch counts taken from 0; prints the
+    stage times and counts. Returns (result, counts)."""
+    from autopanostitch_tpu_torch import api, kernels
+    from autopanostitch_tpu_torch.models.pipeline import StageTimer
+
+    timer = StageTimer(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = api.stitch(iset, cfg, seed=0, device=str(dev), timer=timer)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    log(f"{label}: stage wall s " + json.dumps({k: round(v, 4) for k, v in timer.report().items()})
+        + f" total {wall:.3f}")
+    log(f"{label}: kernel launches in the stitch {json.dumps(counts)}")
+    return res, counts
+
+
+def require_launches(label: str, counts: dict, names, dev) -> None:
+    if dev.type == "cuda" and not all(counts[k] > 0 for k in names):
+        raise AssertionError(f"{label}: a kernel of the path never launched: {counts}")
+
+
+def phase_multipano(dev, n: int, f_true: float, w: int, h: int, env_hw, limit: int,
+                    psnr_min: float):
+    from autopanostitch_tpu_torch.api import RenderConfig, StitchConfig
+
+    t0 = time.perf_counter()
+    iset, truth = multipano_scene(n, f_true, w, h, env_hw, limit)
+    log(f"multipano: scene 2 x {n} views + 1 distractor, {w}x{h} ingested at "
+        f"{iset.images.shape[2]}x{iset.images.shape[1]}, built in {time.perf_counter() - t0:.1f} s")
+    modes = ("spherical", "cylindrical")
+    cfg = StitchConfig(render=RenderConfig(projections=modes))
+    res, counts = run_stitch("multipano", iset, cfg, dev)
+    got = sorted(sorted(np.asarray(p["members"]).tolist()) for p in res.panoramas)
+    log(f"multipano: components {np.asarray(res.components).tolist()}, panoramas {got}, "
+        f"accepted pairs {int(np.asarray(res.graph.accepted).sum())}/{len(res.graph.pairs)}")
+    for p in res.panoramas:
+        log(f"multipano: panorama of {len(p['members'])} canvases "
+            + str({m: p["projections"][m].shape[:2] for m in modes}))
+    metrics = multipano_metrics(res, truth, f_true, modes)
+    for r, (found, ferr, psnr) in enumerate(metrics):
+        log(f"multipano: ring {r} found={found} focal error {ferr} % PSNR "
+            + json.dumps({m: round(v, 3) for m, v in psnr.items()}))
+    if len(res.panoramas) != 2 or not all(m[0] for m in metrics):
+        raise AssertionError(f"expected the two rings as two panoramas, got {got}")
+    if n * 2 in set(np.concatenate([np.asarray(p["members"]) for p in res.panoramas])):
+        raise AssertionError("the distractor was stitched into a panorama")
+    for found, ferr, psnr in metrics:
+        if not ferr < 1.0:
+            raise AssertionError(f"focal error {ferr:.3f} % >= 1 %")
+        if not min(psnr.values()) >= psnr_min:
+            raise AssertionError(f"PSNR {psnr} below {psnr_min} dB")
+    require_launches("multipano", counts, ("knn", "knn_pairs", "window_gather"), dev)
+    return counts
+
+
+def phase_planar(dev, w: int, h: int, psnr_min: float):
+    from autopanostitch_tpu_torch.api import BlendConfig, StitchConfig, StraightenConfig
+
+    iset, env, offs = planar_scene(w, h, 0.35)
+    cfg = StitchConfig(straighten=StraightenConfig(force_planar_scan=True),
+                       blend=BlendConfig(mode="linear"))
+    res, counts = run_stitch("planar", iset, cfg, dev)
+    if len(res.panoramas) != 1 or len(res.panoramas[0]["members"]) != 9:
+        raise AssertionError(f"expected one planar panorama of 9, got components {res.components}")
+    pr = res.panoramas[0]
+    err, psnr = planar_metrics(pr, env, offs, w, h)
+    log(f"planar: 1 panorama of 9, canvas {pr['panorama'].shape[:2]}, accepted pairs "
+        f"{int(np.asarray(res.graph.accepted).sum())}/{len(res.graph.pairs)}, anchor "
+        f"{pr['anchor']}, max corner error {err:.4f} px, PSNR {psnr:.3f} dB")
+    if not err < 1.0:
+        raise AssertionError(f"corner error {err:.3f} px >= 1 px")
+    if not psnr >= psnr_min:
+        raise AssertionError(f"PSNR {psnr:.2f} dB < {psnr_min} dB")
+    require_launches("planar", counts, ("knn", "window_gather"), dev)
     return counts
 
 
@@ -242,15 +451,19 @@ def main() -> int:
 
     if REHEARSE:
         dev = torch.device("cpu")
-        sizes = dict(F=2048, n_img=4, b2=(2, 8, 96, 128), ring=(12, 240.0, 320, 240, (512, 1024)))
+        sizes = dict(F=2048, n_img=4, pairs=(6, 256), b2=(2, 8, 96, 128),
+                     ring=(12, 240.0, 320, 240, (512, 1024)),
+                     multi=(10, 240.0, 320, 240, (512, 1024), 200, 35.0), planar=(320, 240, 40.0))
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA GPU",
                   file=sys.stderr)
             return 1
         dev = torch.device("cuda", 0)
-        sizes = dict(F=20 * 2048, n_img=20, b2=(20, 8, 600, 800),
-                     ring=(20, 600.0, 800, 600, (1024, 2048)))
+        sizes = dict(F=20 * 2048, n_img=20, pairs=(25, 2048), b2=(20, 8, 600, 800),
+                     ring=(20, 600.0, 800, 600, (1024, 2048)),
+                     multi=(12, 600.0, 800, 600, (1024, 2048), 400, JAX_MULTIPANO_PSNR - 3.0),
+                     planar=(800, 600, JAX_PLANAR_PSNR - 3.0))
 
     import autopanostitch_tpu_torch  # noqa: F401  (fails outside the repo)
     from autopanostitch_tpu_torch.kernels import _build
@@ -274,17 +487,22 @@ def main() -> int:
                 log(f"build: {line.strip()}")
 
     b1 = phase_b1(dev, sizes["F"], sizes["n_img"])
+    b1p = phase_b1_pairs(dev, *sizes["pairs"])
     b2 = phase_b2(dev, *sizes["b2"])
-    counts = phase_slice(dev, *sizes["ring"])
+    runs = [phase_slice(dev, *sizes["ring"]), phase_multipano(dev, *sizes["multi"]),
+            phase_planar(dev, *sizes["planar"])]
+    counts = {k: sum(c[k] for c in runs) for k in runs[0]}
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
     kernels = {"kernels": [
         {"name": "pooled_knn", "route": "cuda", "source": "autopanostitch_tpu_torch/csrc/knn.cu",
          "replaces": "autopanostitch_tpu/ops/pallas/match_kernel.py:129",
-         "launches": counts["knn"],
-         "max_abs_err": max(b1["k4"][0], b1["k2_self"][0]),
-         "ms": b1["k4"][1], "plain_ms": b1["k4"][2]},
+         "launches": counts["knn"] + counts["knn_pairs"],
+         "max_abs_err": max(b1["k4"][0], b1["k2_self"][0], b1p[0]),
+         "ms": b1["k4"][1], "plain_ms": b1["k4"][2],
+         "pooled_launches": counts["knn"], "pair_launches": counts["knn_pairs"],
+         "pair_ms": b1p[1], "pair_plain_ms": b1p[2]},
         {"name": "window_gather", "route": "cuda",
          "source": "autopanostitch_tpu_torch/csrc/window_gather.cu",
          "replaces": "autopanostitch_tpu/ops/pallas/window_gather.py:78",

@@ -13,6 +13,7 @@ import pytest
 from autopanostitch_tpu.config import BundleConfig
 from autopanostitch_tpu.models import bundle as jba
 from autopanostitch_tpu_torch.models import bundle as tba
+from test_torch_pipeline import one_torch_thread  # noqa: F401
 
 
 def _ring_graph(n, f, size, yaw_step, n_matches=80, noise=0.3, seed=0, k1=0.0):

@@ -14,6 +14,7 @@ from autopanostitch_tpu.ops import geometry as jgeo
 from autopanostitch_tpu.ops import projections as jproj
 from autopanostitch_tpu_torch.ops import geometry as tgeo
 from autopanostitch_tpu_torch.ops import projections as tproj
+from test_torch_pipeline import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -156,5 +157,9 @@ def test_distortion_and_camera_projection():
 
 
 def test_other_projections_raise():
-    with pytest.raises(NotImplementedError, match="A11"):
-        tproj.pano_to_ray("cylindrical", torch.zeros(2), torch.zeros(2), 1.0, 0.0, 0.0)
+    """The five projections of the reference are ported
+    (tests/test_torch_projections.py); an unknown one raises."""
+    with pytest.raises(ValueError, match="projection"):
+        tproj.pano_to_ray("fisheye", torch.zeros(2), torch.zeros(2), 1.0, 0.0, 0.0)
+    with pytest.raises(ValueError, match="projection"):
+        tproj.ray_to_pano("fisheye", torch.zeros(2, 3))

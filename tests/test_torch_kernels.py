@@ -1,4 +1,5 @@
-"""The port's two CUDA kernels against their plain PyTorch versions.
+"""The port's two CUDA kernels (B1 in its pooled and pair-list modes, B2)
+against their plain PyTorch versions.
 
 This file imports no jax, so the card's machine (which has none) runs its
 `cuda`-marked tests directly, without the repo's conftest:
@@ -81,6 +82,18 @@ def test_wrappers_reject_bad_inputs():
         tknn.knn(d, i.long(), d, i.long(), 2)
     with pytest.raises(ValueError):
         tknn.knn(d, i, d, i, 9)
+    desc, valid = torch.zeros((3, 8, 128)), torch.ones((3, 8), dtype=torch.bool)
+    pairs = torch.tensor([[0, 1]], dtype=torch.int32)
+    with pytest.raises(TypeError):
+        tknn.knn_pairs(desc, valid, pairs.long())
+    with pytest.raises(TypeError):
+        tknn.knn_pairs(desc, valid.int(), pairs)
+    with pytest.raises(ValueError):
+        tknn.knn_pairs(desc, valid, pairs, 3)
+    with pytest.raises(ValueError):
+        tknn.knn_pairs(desc, valid[:2], pairs)
+    with pytest.raises(ValueError, match="indices"):
+        tknn.knn_pairs(desc, valid, pairs + 2)
     src = torch.zeros((2, 8, 8, 2))
     with pytest.raises(ValueError):
         twg.gather_windows(src, i[:2], i[:2], i[:2], 9, 4)
@@ -148,3 +161,57 @@ def test_gather_kernel_matches_plain_on_card(win):
     torch.cuda.synchronize()
     assert twg.launches == before + 1
     assert torch.equal(out, twg.gather_windows_plain(src, lev, ys, xs, win, win))
+
+
+@pytest.mark.cuda
+def test_knn_pairs_kernel_matches_plain_on_card():
+    """Pair-list mode, k = 2, both directions, in one launch; image 3 has
+    only one valid slot (short rows) and image 0 a row of invalid slots."""
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    d = rng.standard_normal((5, 300, 128)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    valid = rng.random((5, 300)) > 0.1
+    valid[3, 1:] = False
+    valid[0, 100:140] = False
+    desc = torch.as_tensor(d, device=dev)
+    val = torch.as_tensor(valid, device=dev)
+    pairs = torch.as_tensor(np.stack(np.triu_indices(5, 1), -1).astype(np.int32), device=dev)
+    before = tknn.pair_launches
+    idx_k, d_k = tknn.knn_pairs(desc, val, pairs, 2)
+    torch.cuda.synchronize()
+    assert tknn.pair_launches == before + 1
+    idx_p, d_p = tknn.knn_pairs_plain(desc, val, pairs, 2)
+    assert idx_k.shape == (10, 2, 300, 2)
+    # the plain version with one neighbour more: pooled-mode agreement check
+    # per pair and direction, ties of 1e-5 allowed to swap
+    for p in range(10):
+        for side in range(2):
+            q = pairs[p, side].item()
+            t = pairs[p, 1 - side].item()
+            tid = torch.where(val[t], 0, -2).to(torch.int32)
+            wide = tknn.knn_plain(desc[q], torch.full((300,), -1, dtype=torch.int32, device=dev),
+                                  desc[t], tid, 3)
+            _assert_knn_agrees(idx_k[p, side], d_k[p, side], *wide)
+            torch.testing.assert_close(d_p[p, side], wide[1][:, :2], rtol=0, atol=1e-4)
+    short = pairs[:, 1] == 3
+    assert torch.equal(d_k[short][:, 0, :, 1] >= 1e17, d_p[short][:, 0, :, 1] >= 1e17)
+
+
+@pytest.mark.cuda
+def test_knn_pairs_kernel_takes_a_list_beyond_the_grid_y_limit():
+    """79800 pairs (every pair of 400 images) in one launch: more blocks of
+    (pair, direction) than gridDim.y or .z could hold."""
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    d = rng.integers(0, 8, (400, 32, 32)).astype(np.float32)  # exact distances
+    desc = torch.as_tensor(d, device=dev)
+    val = torch.as_tensor(rng.random((400, 32)) > 0.1, device=dev)
+    pairs = torch.as_tensor(np.stack(np.triu_indices(400, 1), -1).astype(np.int32), device=dev)
+    before = tknn.pair_launches
+    idx_k, d_k = tknn.knn_pairs(desc, val, pairs, 2)
+    torch.cuda.synchronize()
+    assert tknn.pair_launches == before + 1
+    idx_p, d_p = tknn.knn_pairs_plain(desc, val, pairs, 2)
+    assert torch.equal(d_k, d_p)
+    assert torch.equal(idx_k, idx_p)

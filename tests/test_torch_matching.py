@@ -17,6 +17,7 @@ from autopanostitch_tpu.ops import matching as jmt
 from autopanostitch_tpu.ops.pallas.match_kernel import two_nn_pallas
 from autopanostitch_tpu_torch.kernels import knn as tknn
 from autopanostitch_tpu_torch.ops import matching as tmt
+from test_torch_pipeline import one_torch_thread  # noqa: F401
 
 
 def _pooled(seed, n_img=5, per=120, D=128, noise=0.25, invalid=0.1):

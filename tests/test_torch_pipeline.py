@@ -3,9 +3,11 @@
 - `stitch` on `config3_spherical_ba` against the JAX package's recorded
   golden, with tests/test_parity.py's tolerances.
 - A stage started from the JAX package's own output (`convert`).
-- The port never imports jax, never moves to the CPU when CUDA is asked
-  for, and raises NotImplementedError where the reference would leave the
-  ported path.
+- The converters that start a port stage from JAX output.
+- The port never imports jax and never moves to the CPU when CUDA is
+  asked for. (The recovery paths, the planar path and the other
+  projections: tests/test_torch_recovery.py, test_torch_planar.py and
+  test_torch_projections.py.)
 """
 
 import os
@@ -22,12 +24,24 @@ import parity_scenes
 import autopanostitch_tpu_torch
 from autopanostitch_tpu.models import pipeline as jpipe
 from autopanostitch_tpu.ops.sift import SiftFeatures as JaxSiftFeatures
-from autopanostitch_tpu.utils.image_io import ImageSet
 from autopanostitch_tpu_torch import convert
 from autopanostitch_tpu_torch.models import pipeline as tpipe
 from autopanostitch_tpu_torch.ops import sampling as tsamp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread per test module. Tier-1 runs six test workers on
+    the machine's cores, and torch's per-process thread pool on top of them
+    oversubscribes the cores (test_torch_projections.py ran 849 s in such a
+    run against 59 s alone); these tests are small and run as fast on one
+    thread. The torch test modules import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _assert_golden(fresh, golden):
@@ -72,8 +86,8 @@ def test_config3_golden_parity(config3_run):
     with np.load(os.path.join(REPO, "tests", "goldens", "config3_spherical_ba.npz")) as z:
         golden = {k: z[k] for k in z.files}
     _assert_golden(parity_scenes.extract_artifacts(iset, res), golden)
-    assert set(timer.report()) == {"features", "matching", "ransac", "bundle_adjustment",
-                                   "gain", "render"}
+    assert set(timer.report()) == {"features", "matching", "ransac", "pairwise_rescue",
+                                   "bundle_adjustment", "gain", "render"}
 
 
 def test_stage_from_jax_output(config3_run):
@@ -120,6 +134,30 @@ def test_convert_fields():
     assert convert.gains(np.ones((2, 3))).dtype == np.float32
 
 
+def test_convert_homography_ba_and_canvas_fields():
+    from autopanostitch_tpu.models import bundle_h as jbh
+    from autopanostitch_tpu.models import render as jrender
+
+    Hs = np.array([[[1.0, 0.0, -100.0], [0.0, 1.0, -5.0], [0.0, 0.0, 1.0]]], np.float32)
+    u = np.random.default_rng(1).uniform(110, 300, (1, 30, 2)).astype(np.float32)
+    hba = jbh.run_bundle_adjustment_h(np.array([[0, 1]]), Hs, (u, u - [100, 5], np.ones((1, 30))),
+                                      2)
+    out = convert.homography_ba(hba)
+    assert out["H_abs"].dtype == np.float32 and out["H_abs"].shape == (2, 3, 3)
+    assert out["reachable"].dtype == bool and out["reachable"].all()
+    assert out["anchor"] == hba["anchor"] and isinstance(out["final_cost"], float)
+    np.testing.assert_allclose(out["H_init"], hba["H_init"])
+    pano = convert.homography_ba({"H_abs": hba["H_abs"], "reachable": hba["reachable"],
+                                  "anchor": np.int64(0)})
+    assert pano["anchor"] == 0 and "final_cost" not in pano
+    R = np.stack([np.eye(3), np.eye(3)]).astype(np.float32)
+    K = np.tile(np.array([[200, 0, 99.5], [0, 200, 79.5], [0, 0, 1]], np.float32), (2, 1, 1))
+    cj = jrender.compute_canvas(R, K, np.array([[160, 200]] * 2), "stereographic")
+    ct = convert.canvas(cj)
+    assert set(ct) == set(cj) and isinstance(ct["f_pan"], float) and isinstance(ct["Hc"], int)
+    assert ct["R_ref"].dtype == np.float32 and ct["R_ref"].shape == (3, 3)
+
+
 def test_port_imports_no_jax():
     mods = [m.name for m in pkgutil.walk_packages(autopanostitch_tpu_torch.__path__,
                                                   "autopanostitch_tpu_torch.")]
@@ -152,17 +190,6 @@ def test_stitch_on_cuda_raises_without_cuda():
         d = torch.zeros((4, 128), device="meta")
         i = torch.zeros(4, dtype=torch.int32, device="meta")
         knn.knn(d, i, d, i, 2)
-
-
-def test_fragmented_graph_raises_not_implemented():
-    """An unrelated image leaves a singleton component: the reference would
-    run its pairwise rescue, which the port has not ported (A9)."""
-    iset, cfg = parity_scenes.config3_spherical_ba()
-    imgs = np.asarray(iset.images)[:3].copy()
-    imgs[2] = np.random.default_rng(0).uniform(size=imgs[2].shape).astype(np.float32)
-    small = ImageSet(images=imgs, sizes=iset.sizes[:3], names=iset.names[:3])
-    with pytest.raises(NotImplementedError, match="A9"):
-        tpipe.stitch(small, cfg, device="cpu")
 
 
 def test_rescue_trigger_matches_jax():

@@ -15,6 +15,7 @@ import torch
 
 from autopanostitch_tpu.ops import ransac as jrs
 from autopanostitch_tpu_torch.ops import ransac as trs
+from test_torch_pipeline import one_torch_thread  # noqa: F401
 
 
 def _pairs(seed, P=6, M=96, outlier=0.35):

@@ -25,6 +25,7 @@ from autopanostitch_tpu_torch.models import gain as tgain
 from autopanostitch_tpu_torch.models import render as trender
 from autopanostitch_tpu_torch.ops import blend as tblend
 from autopanostitch_tpu_torch.ops import sampling as tsamp
+from test_torch_pipeline import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("shape", [(2, 13, 17, 4), (1, 32, 48, 3)])
@@ -158,10 +159,14 @@ def test_canvas_contributors_and_render_match_jax():
 
 
 def test_unported_render_options_raise():
+    """Every projection, blend and interpolation of the reference is ported
+    (tests/test_torch_projections.py); names the reference does not know
+    raise."""
     imgs, feathers, R, K, sizes, _ = _scene()
-    with pytest.raises(NotImplementedError, match="A11"):
-        trender.compute_canvas(R, K, sizes, "cylindrical")
-    canvas = trender.compute_canvas(R, K, sizes, "spherical")
-    with pytest.raises(NotImplementedError, match="A11"):
-        trender.render_rotational(torch.as_tensor(imgs), torch.as_tensor(feathers), R, K, canvas,
-                                  blend_mode="linear")
+    with pytest.raises(ValueError, match="projection"):
+        trender.compute_canvas(R, K, sizes, "fisheye")
+    canvas = trender.compute_canvas(R, K, sizes, "cylindrical")
+    for kw in ({"blend_mode": "feather"}, {"interp": "lanczos"}):
+        with pytest.raises(ValueError):
+            trender.render_rotational(torch.as_tensor(imgs), torch.as_tensor(feathers), R, K,
+                                      canvas, **kw)

@@ -25,6 +25,7 @@ from autopanostitch_tpu.ops.pallas import window_gather as jwg
 from autopanostitch_tpu_torch.kernels import window_gather as twg
 from autopanostitch_tpu_torch.models import features as tfeat
 from autopanostitch_tpu_torch.ops import sift as tsift
+from test_torch_pipeline import one_torch_thread  # noqa: F401
 
 CFG = DetectorConfig(max_keypoints=512, num_octaves=3)
 
