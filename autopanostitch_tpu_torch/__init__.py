@@ -6,13 +6,14 @@ the module of the same name there, and the tests hold each one against it.
 The two TPU (Pallas) kernels of the main path are written by hand in CUDA
 (`csrc/`), built at first use (`kernels/_build.py`).
 
-The configuration dataclasses are shared with the JAX package
-(`autopanostitch_tpu.config` imports no jax).
+The port imports nothing of the JAX package: its configuration dataclasses,
+image I/O, straightening and cropping are copies (`config.py`,
+`utils/image_io.py`, `models/straighten.py`, `models/crop.py`) with the same
+names and defaults.
 """
 
-from autopanostitch_tpu.config import StitchConfig, default_config
-
 from autopanostitch_tpu_torch import device as _device  # noqa: F401  (sets TF32 off)
+from autopanostitch_tpu_torch.config import StitchConfig, default_config
 
 __version__ = "0.1.0"
 

@@ -8,15 +8,15 @@ the stages it ports.
 
 from __future__ import annotations
 
-from autopanostitch_tpu.config import (  # noqa: F401
+from autopanostitch_tpu_torch.config import (  # noqa: F401
     BlendConfig,
     RenderConfig,
     StitchConfig,
     StraightenConfig,
     default_config,
 )
-from autopanostitch_tpu.models.straighten import straighten_rotations as straighten  # noqa: F401
-from autopanostitch_tpu.utils.image_io import (  # noqa: F401
+from autopanostitch_tpu_torch.models.straighten import straighten_rotations as straighten  # noqa: F401
+from autopanostitch_tpu_torch.utils.image_io import (  # noqa: F401
     ImageSet,
     image_set_from_arrays,
     list_dataset,

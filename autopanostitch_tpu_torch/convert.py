@@ -1,17 +1,21 @@
 """Carry state from the JAX package into the port.
 
 The pipeline has no learned weights; the state that crosses between the
-packages is stage output: features, the match graph, cameras, gains, the
-homography BA / planar result and the render canvas.
+packages is its configuration and stage output: features, the match graph,
+cameras, gains, the homography BA / planar result and the render canvas.
 Each function takes the JAX package's object (or anything with the same
-fields) holding arrays convertible with numpy, and returns the port's.
+fields) holding arrays convertible with numpy, and returns the port's;
+the tensor ones put it on the `device` they are given.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from autopanostitch_tpu_torch.config import StitchConfig
 from autopanostitch_tpu_torch.models.bundle import Cameras
 from autopanostitch_tpu_torch.models.pipeline import MatchGraph
 from autopanostitch_tpu_torch.ops.sift import SiftFeatures
@@ -21,7 +25,14 @@ def _field(obj, name):
     return obj[name] if isinstance(obj, dict) else getattr(obj, name)
 
 
-def sift_features(feats, device="cpu") -> SiftFeatures:
+def config(cfg) -> StitchConfig:
+    """JAX `StitchConfig` (or its `dataclasses.asdict`) -> the port's copy."""
+    d = cfg if isinstance(cfg, dict) else dataclasses.asdict(cfg)
+    ref = StitchConfig()
+    return StitchConfig(**{name: type(getattr(ref, name))(**sub) for name, sub in d.items()})
+
+
+def sift_features(feats, device) -> SiftFeatures:
     """JAX `SiftFeatures` (or a dict of its fields) -> the port's, on device."""
     out = {}
     for name in SiftFeatures._fields:
@@ -36,7 +47,7 @@ def match_graph(graph) -> MatchGraph:
     return MatchGraph(**{k: np.array(_field(graph, k)) for k in MatchGraph.__dataclass_fields__})
 
 
-def cameras(cams, device="cpu") -> Cameras:
+def cameras(cams, device) -> Cameras:
     """JAX `Cameras` (R, f, cx, cy, k1 | None) -> the port's, on device."""
     def t(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)

@@ -1,8 +1,10 @@
 """Build the CUDA kernels of `csrc/` at first use and load them with ctypes.
 
-All `csrc/*.cu` compile in ONE `nvcc` call into a shared library with a
-plain C interface (no PyTorch headers: the build takes seconds, where a
-`torch.utils.cpp_extension` build takes minutes). The library lands in
+Each `csrc/*.cu` compiles in its own `nvcc` process, all started together,
+and one more `nvcc` links the objects into a shared library with a plain C
+interface (no PyTorch headers: the build takes under a minute, most of it
+`knn.cu`'s 42 template instances, where a `torch.utils.cpp_extension` build
+of one small file took minutes). The library lands in
 `autopanostitch_tpu_torch/_build/`, named by a hash of the sources and the
 flags, so a changed source rebuilds and an unchanged one loads at once.
 
@@ -26,7 +28,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -69,18 +71,27 @@ def build() -> pathlib.Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc()] + ARCH_FLAGS + FLAGS + ["-I", str(CSRC), "-o", tmp] + cu
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            objs.append(os.path.join(work, src.stem + ".o"))
+            procs.append(subprocess.Popen(
+                [nvcc()] + ARCH_FLAGS + FLAGS + ["-I", str(CSRC), "-c", "-o", objs[-1], str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if not failed:
+            tmp = os.path.join(work, "lib.so")
+            link = subprocess.run([nvcc()] + ARCH_FLAGS + ["-shared", "-o", tmp] + objs,
+                                  capture_output=True, text=True)
+            build_log += link.stdout + link.stderr
+            failed = [link.returncode] if link.returncode != 0 else []
+        build_seconds = time.perf_counter() - t0
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{build_log}")
+        os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     return out
 
 

@@ -25,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from autopanostitch_tpu.config import BundleConfig
+from autopanostitch_tpu_torch.config import BundleConfig
 from autopanostitch_tpu_torch.ops import geometry as geo
 from autopanostitch_tpu_torch.ops import projections as proj
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from autopanostitch_tpu.config import BundleConfig
+from autopanostitch_tpu_torch.config import BundleConfig
 from autopanostitch_tpu_torch.models.planar import chain_to_anchor
 
 
@@ -221,7 +221,7 @@ def bundle_adjust_h(params0, pair_ij, u_i, u_j, w, pair_valid, seed_idx: int,
 
 def run_bundle_adjustment_h(loc_pairs: np.ndarray, Hs: np.ndarray, pair_coords, n: int,
                             cfg: BundleConfig = BundleConfig(), anchor: int | None = None,
-                            device="cpu"):
+                            device="cuda"):
     """Chain initialisation + joint homography refinement of one planar
     component. Hs[p] maps loc_pairs[p, 0] -> loc_pairs[p, 1]; pair_coords =
     (u_i (P, M, 2), u_j (P, M, 2), w (P, M)) inlier coordinates (numpy).

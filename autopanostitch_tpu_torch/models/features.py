@@ -6,7 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from autopanostitch_tpu.config import DetectorConfig
+from autopanostitch_tpu_torch.config import DetectorConfig
 from autopanostitch_tpu_torch.ops import sampling as samp
 from autopanostitch_tpu_torch.ops import sift
 from autopanostitch_tpu_torch.ops.sift import SiftFeatures

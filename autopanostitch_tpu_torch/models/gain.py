@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from autopanostitch_tpu.config import GainConfig
+from autopanostitch_tpu_torch.config import GainConfig
 from autopanostitch_tpu_torch.ops import geometry as geo
 from autopanostitch_tpu_torch.ops import projections as proj
 from autopanostitch_tpu_torch.ops import sampling as samp

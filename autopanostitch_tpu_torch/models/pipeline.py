@@ -32,22 +32,22 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from autopanostitch_tpu.config import StitchConfig
-from autopanostitch_tpu.models import crop as crop_stage
-from autopanostitch_tpu.models import straighten as straighten_stage
-from autopanostitch_tpu.utils import image_io
-from autopanostitch_tpu.utils.image_io import ImageSet
 from autopanostitch_tpu_torch import device as device_mod
+from autopanostitch_tpu_torch.config import StitchConfig
 from autopanostitch_tpu_torch.models import bundle as bundle_stage
 from autopanostitch_tpu_torch.models import bundle_h as bundle_h_stage
+from autopanostitch_tpu_torch.models import crop as crop_stage
 from autopanostitch_tpu_torch.models import features as features_stage
 from autopanostitch_tpu_torch.models import gain as gain_stage
 from autopanostitch_tpu_torch.models import planar as planar_stage
 from autopanostitch_tpu_torch.models import render as render_stage
+from autopanostitch_tpu_torch.models import straighten as straighten_stage
 from autopanostitch_tpu_torch.ops import matching as mt
 from autopanostitch_tpu_torch.ops import ransac as rs
 from autopanostitch_tpu_torch.ops import sampling as samp_ops
 from autopanostitch_tpu_torch.ops.sift import SiftFeatures
+from autopanostitch_tpu_torch.utils import image_io
+from autopanostitch_tpu_torch.utils.image_io import ImageSet
 
 
 @dataclasses.dataclass

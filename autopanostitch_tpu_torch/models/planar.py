@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from autopanostitch_tpu.config import GainConfig
+from autopanostitch_tpu_torch.config import GainConfig
 from autopanostitch_tpu_torch.ops import blend as blend_ops
 from autopanostitch_tpu_torch.ops import sampling as samp
 
@@ -52,7 +52,7 @@ def chain_to_anchor(pairs: np.ndarray, Hs: np.ndarray, n: int, anchor: int | Non
 
 
 def planar_canvas_bounds(H_abs: np.ndarray, sizes: np.ndarray, reachable: np.ndarray,
-                         max_megapixel: float = 50.0, pad: int = 8, device="cpu"):
+                         max_megapixel: float = 50.0, pad: int = 8, device="cuda"):
     """Canvas extent from the reachable images' output limits, with the MP
     cap (`renderPanorama.m:551-569`, `:167-176`). Returns (Hc, Wc, x0, y0,
     scale)."""

@@ -23,7 +23,7 @@ import warnings
 import numpy as np
 import torch
 
-from autopanostitch_tpu.config import RenderConfig
+from autopanostitch_tpu_torch.config import RenderConfig
 from autopanostitch_tpu_torch.ops import blend as blend_ops
 from autopanostitch_tpu_torch.ops import geometry as geo
 from autopanostitch_tpu_torch.ops import projections as proj

@@ -20,7 +20,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from autopanostitch_tpu.config import DetectorConfig
+from autopanostitch_tpu_torch.config import DetectorConfig
 from autopanostitch_tpu_torch.kernels.window_gather import gather_windows
 
 _INIT_SIGMA = 0.5

@@ -6,9 +6,12 @@ This file imports no jax, so the card's machine (which has none) runs its
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
 
-Here, on the CPU, those tests skip; the wrapper and plain-version checks run.
+Here, on the CPU, those tests skip; the wrapper and plain-version checks run,
+and a numpy emulation of B1's 3xTF32 split bounds its distance error.
 B1's indices must be equal outside distance ties (1e-5) and its distances
-within atol 1e-4 (float32 FMA sums in another order); B2 is bit-exact.
+within atol 1e-4 (3xTF32 tensor-core sums, ~1e-6 on unit descriptors, in
+another order); on small-integer descriptors it is bit-equal to the plain
+version. B2 is bit-exact.
 """
 
 import numpy as np
@@ -46,6 +49,67 @@ def _assert_knn_agrees(idx_k, d_k, idx_p, d_p, tie=1e-5):
     distinct = gaps[:, :k] > tie
     distinct[:, 1:] &= gaps[:, : k - 1] > tie
     assert int(((idx_k != idx_p[:, :k]) & distinct).sum()) == 0
+
+
+def _tf32(x, mode="rna"):
+    """Float32 to TF32 (10 mantissa bits): "rna" rounds to nearest with ties
+    away from zero (cvt.rna.tf32.f32, and B1's hi), "rz" truncates (how the
+    tensor core reads a float32 operand, and so B1's lo)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    if mode == "rna":
+        u = u + np.uint32(0x1000)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _dist_3xtf32(q, t):
+    """Squared distances with B1's q.t products emulated: each query and
+    target element split into hi = rna(x), lo = rz(x - hi), and hi.hi +
+    hi.lo + lo.hi summed in float64 (the tensor core's float32 accumulation
+    is not emulated)."""
+    qh, th = _tf32(q), _tf32(t)
+    ql, tl = _tf32(q - qh, "rz"), _tf32(t - th, "rz")
+    f = np.float64
+    dot = qh.astype(f) @ th.T.astype(f) + qh.astype(f) @ tl.T.astype(f) + ql.astype(f) @ th.T.astype(f)
+    qn = (q.astype(f) ** 2).sum(1)
+    tn = (t.astype(f) ** 2).sum(1)
+    return qn[:, None] + tn[None, :] - 2.0 * dot
+
+
+def _sift_like(rng, n):
+    """Non-negative 128-d unit descriptors clipped at 0.2 and renormalised,
+    as SIFT builds them."""
+    d = np.abs(rng.standard_normal((n, 128))) ** 2
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d = np.minimum(d, 0.2)
+    return (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = np.array([1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-11, 1.0 + 2.0**-12, -(1.0 + 2.0**-11),
+                  1.0 + 3 * 2.0**-11], np.float32)
+    np.testing.assert_array_equal(_tf32(x), np.array(
+        [1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-10, 1.0, -(1.0 + 2.0**-10), 1.0 + 2.0**-9], np.float32))
+    np.testing.assert_array_equal(_tf32(x, "rz"), np.array(
+        [1.0, 1.0 + 2.0**-10, 1.0, 1.0, -1.0, 1.0 + 2.0**-10], np.float32))
+    for mode in ("rna", "rz"):
+        assert (_tf32(x, mode).view(np.uint32) & 0x1FFF == 0).all()
+
+
+def test_3xtf32_split_keeps_float32_accuracy():
+    """The tolerance argument of B1's tensor-core design: on SIFT-like unit
+    descriptors the split's distance error is <= 2e-6 (below the 1e-5 tie
+    rule and the 1e-4 gate); on small-integer descriptors it is exactly 0."""
+    rng = np.random.default_rng(0)
+    q, t = _sift_like(rng, 300), _sift_like(rng, 500)
+    exact = ((q.astype(np.float64)[:, None] - t.astype(np.float64)[None]) ** 2).sum(-1)
+    err = np.abs(_dist_3xtf32(q, t) - exact).max()
+    assert err <= 2e-6
+    one_pass = _tf32(q).astype(np.float64) @ _tf32(t).T.astype(np.float64)
+    assert np.abs(one_pass - q.astype(np.float64) @ t.T.astype(np.float64)).max() > 1e-4
+    qi = rng.integers(0, 8, (50, 128)).astype(np.float32)
+    ti = rng.integers(0, 8, (70, 128)).astype(np.float32)
+    exact_i = ((qi.astype(np.float64)[:, None] - ti.astype(np.float64)[None]) ** 2).sum(-1)
+    assert np.array_equal(_dist_3xtf32(qi, ti), exact_i)
 
 
 def test_plain_knn_is_exact_with_lower_index_ties():
@@ -199,6 +263,28 @@ def test_knn_pairs_kernel_matches_plain_on_card():
 
 
 @pytest.mark.cuda
+def test_knn_pairs_kernel_exact_duplicates_on_card():
+    """Pair-list mode: a slot whose descriptor recurs in the other image is
+    matched to it at distance 0 both ways; the runner-up keeps its float32
+    distance."""
+    dev = _cuda()
+    rng = np.random.default_rng(12)
+    d = np.abs(rng.standard_normal((3, 500, 128))).astype(np.float32) ** 2
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    perm = rng.permutation(500)
+    d[2] = d[0][perm]  # slot j of image 2 is slot perm[j] of image 0
+    desc = torch.as_tensor(d, device=dev)
+    valid = torch.ones((3, 500), dtype=torch.bool, device=dev)
+    pairs = torch.as_tensor([[0, 2], [1, 2]], dtype=torch.int32, device=dev)
+    idx, dist = tknn.knn_pairs(desc, valid, pairs, 2)
+    assert np.array_equal(idx[0, 0, :, 0].cpu().numpy(), np.argsort(perm))
+    assert np.array_equal(idx[0, 1, :, 0].cpu().numpy(), perm)
+    assert float(dist[0, :, :, 0].abs().max()) == 0.0
+    _, d_p = tknn.knn_pairs_plain(desc, valid, pairs, 2)
+    torch.testing.assert_close(dist[..., 1], d_p[..., 1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_knn_pairs_kernel_takes_a_list_beyond_the_grid_y_limit():
     """79800 pairs (every pair of 400 images) in one launch: more blocks of
     (pair, direction) than gridDim.y or .z could hold."""
@@ -215,3 +301,123 @@ def test_knn_pairs_kernel_takes_a_list_beyond_the_grid_y_limit():
     idx_p, d_p = tknn.knn_pairs_plain(desc, val, pairs, 2)
     assert torch.equal(d_k, d_p)
     assert torch.equal(idx_k, idx_p)
+
+
+def _knn_case(seed, Fq, Ft, D, integer=False):
+    """Queries (Fq, D) against distinct targets (Ft, D), 3 images each, ~10 %
+    invalid targets; unit descriptors, or small integers (exact sums)."""
+    rng = np.random.default_rng(seed)
+    if integer:
+        q = rng.integers(0, 8, (Fq, D)).astype(np.float32)
+        t = rng.integers(0, 8, (Ft, D)).astype(np.float32)
+    else:
+        q = rng.standard_normal((Fq, D)).astype(np.float32)
+        t = rng.standard_normal((Ft, D)).astype(np.float32)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        t /= np.linalg.norm(t, axis=1, keepdims=True)
+    qid = rng.integers(0, 3, Fq).astype(np.int32)
+    tid = np.where(rng.random(Ft) < 0.1, -2, rng.integers(0, 3, Ft)).astype(np.int32)
+    return q, qid, t, tid
+
+
+def _run_knn_case(case, k, dev, exact=False):
+    q, qid, t, tid = (torch.as_tensor(a, device=dev) for a in case)
+    before = tknn.launches
+    idx_k, d_k = tknn.knn(q, qid, t, tid, k)
+    torch.cuda.synchronize()
+    assert tknn.launches == before + 1
+    if exact:
+        idx_p, d_p = tknn.knn_plain(q, qid, t, tid, k)
+        assert torch.equal(d_k, d_p) and torch.equal(idx_k, idx_p)
+    else:
+        idx_p, d_p = tknn.knn_plain(q, qid, t, tid, min(k + 1, t.shape[0]))
+        if d_p.shape[1] == k:  # Ft == k: no neighbour beyond the k-th
+            d_p = torch.cat([d_p, torch.full_like(d_p[:, :1], float("inf"))], 1)
+            idx_p = torch.cat([idx_p, idx_p[:, :1]], 1)
+        _assert_knn_agrees(idx_k, d_k, idx_p, d_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(1, 9))
+def test_knn_kernel_every_k_on_card(k):
+    _run_knn_case(_knn_case(10 + k, 1000, 1500, 128), k, _cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 96, 128])
+def test_knn_kernel_descriptor_widths_on_card(D):
+    dev = _cuda()
+    _run_knn_case(_knn_case(20 + D, 777, 1234, D), 4, dev)
+    _run_knn_case(_knn_case(20 + D, 777, 1234, D, integer=True), 4, dev, exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Fq,Ft", [(1, 3), (5, 8), (130, 65), (127, 4097), (1001, 63)])
+def test_knn_kernel_ragged_sizes_on_card(Fq, Ft):
+    """Query and target counts that are no multiple of a tile (128 x 64)."""
+    dev = _cuda()
+    k = min(4, Ft)
+    _run_knn_case(_knn_case(Fq + Ft, Fq, Ft, 128), k, dev)
+    _run_knn_case(_knn_case(Fq + Ft, Fq, Ft, 128, integer=True), k, dev, exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,with_self", [(4, False), (2, True)])
+def test_knn_kernel_bit_equal_on_integer_descriptors_on_card(k, with_self):
+    """Pooled mode on one set with same-image, invalid and self masks: every
+    distance exact, ties real, so idx and dist equal the plain version's."""
+    dev = _cuda()
+    rng = np.random.default_rng(7)
+    d = torch.as_tensor(rng.integers(0, 8, (3000, 128)).astype(np.float32), device=dev)
+    ids = np.repeat(np.arange(5, dtype=np.int32), 600)
+    if not with_self:
+        ids = np.where(rng.random(3000) < 0.1, -2, ids).astype(np.int32)
+    qid = torch.as_tensor(ids, device=dev)
+    extra = (torch.arange(3000, dtype=torch.int32, device=dev),) if with_self else ()
+    idx_k, d_k = tknn.knn(d, qid, d, qid, k, *extra)
+    idx_p, d_p = tknn.knn_plain(d, qid, d, qid, k, *extra)
+    assert torch.equal(d_k, d_p) and torch.equal(idx_k, idx_p)
+
+
+@pytest.mark.cuda
+def test_knn_pairs_kernel_bit_equal_on_integer_descriptors_on_card():
+    """Pair-list mode at D = 128 with a ragged slot count (300)."""
+    dev = _cuda()
+    rng = np.random.default_rng(8)
+    desc = torch.as_tensor(rng.integers(0, 8, (6, 300, 128)).astype(np.float32), device=dev)
+    val = torch.as_tensor(rng.random((6, 300)) > 0.1, device=dev)
+    pairs = torch.as_tensor(np.stack(np.triu_indices(6, 1), -1).astype(np.int32), device=dev)
+    for k in (1, 2):
+        idx_k, d_k = tknn.knn_pairs(desc, val, pairs, k)
+        idx_p, d_p = tknn.knn_pairs_plain(desc, val, pairs, k)
+        assert torch.equal(d_k, d_p) and torch.equal(idx_k, idx_p)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_at_the_smoke_shape_on_card():
+    """F = 40,960 pooled (20 images of 2048), k = 4, as the ring's matcher."""
+    dev = _cuda()
+    d, ids, qid = _pooled(9, n_img=20, per=2048)
+    desc = torch.as_tensor(d, device=dev)
+    q = torch.as_tensor(qid, device=dev)
+    idx_k, d_k = tknn.knn(desc, q, desc, q, 4)
+    idx_p, d_p = tknn.knn_plain(desc, q, desc, q, 5)
+    _assert_knn_agrees(idx_k, d_k, idx_p, d_p)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_exact_duplicates_on_card():
+    """An exact duplicate in another image is found first at distance 0:
+    the winners' distances are recomputed from direct differences, so the
+    tensor core's truncating accumulation (a few 1e-6 here) does not reach
+    the ratio test."""
+    dev = _cuda()
+    rng = np.random.default_rng(11)
+    d = np.abs(rng.standard_normal((4000, 128))).astype(np.float32) ** 2
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[2000:3000] = d[:1000]
+    desc = torch.as_tensor(d, device=dev)
+    ids = torch.as_tensor(np.repeat(np.arange(4, dtype=np.int32), 1000), device=dev)
+    idx, dist = tknn.knn(desc, ids, desc, ids, 2)
+    assert torch.equal(idx[:1000, 0], torch.arange(2000, 3000, dtype=torch.int32, device=dev))
+    assert float(dist[:1000, 0].abs().max()) == 0.0

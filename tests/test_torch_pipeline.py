@@ -103,7 +103,7 @@ def test_stage_from_jax_output(config3_run):
     jgraph = jpipe.verify_matches(jfeats, pairs, pair_idx, pair_mask, counts, cfg,
                                   jpipe.host_prng_key(0))
     graph = convert.match_graph(jgraph)
-    feats = convert.sift_features(jfeats)
+    feats = convert.sift_features(jfeats, "cpu")
     np.testing.assert_array_equal(graph.pairs, res.graph.pairs)
     np.testing.assert_array_equal(graph.accepted, res.graph.accepted)
     images = torch.as_tensor(iset.images)
@@ -123,13 +123,13 @@ def test_convert_fields():
                          orientation=jnp.zeros((2, 5)), response=jnp.ones((2, 5)),
                          desc=jnp.asarray(rng.uniform(size=(2, 5, 128))),
                          mask=jnp.asarray(rng.uniform(size=(2, 5)) > 0.5))
-    tf = convert.sift_features(jf)
+    tf = convert.sift_features(jf, "cpu")
     assert tf.mask.dtype == torch.bool and tf.desc.dtype == torch.float32
     np.testing.assert_array_equal(tf.mask.numpy(), np.asarray(jf.mask))
     from autopanostitch_tpu.models.bundle import Cameras as JaxCameras
 
     cams = convert.cameras(JaxCameras(R=jnp.eye(3)[None], f=jnp.ones(1) * 300, cx=jnp.zeros(1),
-                                      cy=jnp.zeros(1), k1=None))
+                                      cy=jnp.zeros(1), k1=None), "cpu")
     assert cams.k1 is None and cams.R.shape == (1, 3, 3)
     assert convert.gains(np.ones((2, 3))).dtype == np.float32
 
@@ -159,23 +159,32 @@ def test_convert_homography_ba_and_canvas_fields():
 
 
 def test_port_imports_no_jax():
+    """Every port module (and chip_smoke.py) imports with jax and the JAX
+    package made unimportable, and no source line imports either."""
     mods = [m.name for m in pkgutil.walk_packages(autopanostitch_tpu_torch.__path__,
                                                   "autopanostitch_tpu_torch.")]
+    assert {"autopanostitch_tpu_torch.api", "autopanostitch_tpu_torch.config",
+            "autopanostitch_tpu_torch.utils.image_io", "autopanostitch_tpu_torch.models.crop",
+            "autopanostitch_tpu_torch.models.straighten"} <= set(mods)
     code = ("import importlib, sys\n"
-            f"for m in {mods!r}: importlib.import_module(m)\n"
-            "print('jax' in sys.modules)")
+            "sys.modules['autopanostitch_tpu'] = None\n"
+            "sys.modules['jax'] = None\n"
+            "import autopanostitch_tpu_torch, autopanostitch_tpu_torch.api\n"
+            f"for m in {mods!r} + ['chip_smoke']: importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules if m.startswith(('jax.', 'autopanostitch_tpu.'))))")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
                          cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "False"
+    assert out.stdout.strip() == "[]"
+    banned = ("import jax", "from jax", "import autopanostitch_tpu ", "import autopanostitch_tpu.",
+              "from autopanostitch_tpu ", "from autopanostitch_tpu.")
     for root in (os.path.join(REPO, "autopanostitch_tpu_torch"), os.path.join(REPO, "chip_smoke.py")):
         files = [root] if root.endswith(".py") else [
             os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs if f.endswith(".py")]
         for path in files:
             for line in open(path):
-                s = line.strip()
-                assert not (s.startswith("import jax") or s.startswith("from jax")), path
+                assert not line.strip().startswith(banned), path
 
 
 def test_stitch_on_cuda_raises_without_cuda():

@@ -93,7 +93,7 @@ def test_output_limits_and_canvas_bounds_match_jax():
     for reach in ([True, True, True], [True, False, True]):
         for cap in (50.0, 0.05):
             bj = jplanar.planar_canvas_bounds(H_ABS, sizes, np.array(reach), cap)
-            bt = tplanar.planar_canvas_bounds(H_ABS, sizes, np.array(reach), cap)
+            bt = tplanar.planar_canvas_bounds(H_ABS, sizes, np.array(reach), cap, device="cpu")
             assert bt == bj
 
 
@@ -189,7 +189,7 @@ def test_homography_ba_matches_jax(one_direction):
     pairs, Hs, coords = _pair_coords()
     cfg = BundleConfig(max_iter_lm=24, h_one_direction=one_direction)
     rj = jbh.run_bundle_adjustment_h(pairs, Hs, coords, 3, cfg)
-    rt = tbh.run_bundle_adjustment_h(pairs, Hs, coords, 3, cfg)
+    rt = tbh.run_bundle_adjustment_h(pairs, Hs, coords, 3, cfg, device="cpu")
     assert rt["anchor"] == rj["anchor"]
     np.testing.assert_array_equal(rt["reachable"], rj["reachable"])
     np.testing.assert_allclose(rt["H_init"], rj["H_init"], rtol=1e-6, atol=1e-6)
