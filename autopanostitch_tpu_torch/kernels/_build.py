@@ -103,6 +103,10 @@ def _declare(lib):
     lib.apst_knn_pairs.restype = I
     lib.apst_gather_windows.argtypes = [P, I, I, I, P, P, P, I, I, I, P, P]
     lib.apst_gather_windows.restype = I
+    lib.apst_orient_hist.argtypes = [P, I, I, I, P, P, P, P, P, P, I, I, I, P, P]
+    lib.apst_orient_hist.restype = I
+    lib.apst_sift_descriptor.argtypes = [P, I, I, I, P, P, P, P, P, P, P, I, I, I, I, I, P, P]
+    lib.apst_sift_descriptor.restype = I
     lib.apst_error_string.argtypes = [I]
     lib.apst_error_string.restype = ctypes.c_char_p
 

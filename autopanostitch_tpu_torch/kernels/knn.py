@@ -82,6 +82,13 @@ def _knn_cuda(desc_q, qid, desc_t, tid, k, self_idx):
     return idx, dist
 
 
+def check_width(D: int, name: str = "knn kernel") -> None:
+    """Raise ValueError unless the kernel takes descriptors of width D (a
+    multiple of 32, <= 128)."""
+    if D % 32 or not 0 < D <= 128:
+        raise ValueError(f"{name}: descriptor width {D} must be a multiple of 32 <= 128")
+
+
 def knn(desc_q, qid, desc_t, tid, k: int, self_idx=None):
     """k nearest targets of each query (ascending distance, ties -> lower index).
 
@@ -109,9 +116,7 @@ def knn(desc_q, qid, desc_t, tid, k: int, self_idx=None):
         return knn_plain(desc_q, qid, desc_t, tid, k, self_idx)
     if dev.type != "cuda":
         raise ValueError(f"knn: unsupported device {dev}")
-    D = desc_q.shape[1]
-    if D % 32 or D > 128:
-        raise ValueError(f"knn kernel: descriptor width {D} must be a multiple of 32 <= 128")
+    check_width(desc_q.shape[1], "knn kernel")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("knn kernel: inputs must be contiguous")
     return _knn_cuda(desc_q, qid, desc_t, tid, k, self_idx)
@@ -191,9 +196,7 @@ def knn_pairs(desc, valid, pairs, k: int = 2):
         return knn_pairs_plain(desc, valid, pairs, k)
     if dev.type != "cuda":
         raise ValueError(f"knn_pairs: unsupported device {dev}")
-    D = desc.shape[2]
-    if D % 32 or D > 128:
-        raise ValueError(f"knn_pairs kernel: descriptor width {D} must be a multiple of 32 <= 128")
+    check_width(desc.shape[2], "knn_pairs kernel")
     blocks = 2 * pairs.shape[0] * -(-desc.shape[1] // 128)
     if not 1 <= blocks < 2**31:
         raise ValueError(f"knn_pairs kernel: {pairs.shape[0]} pairs of {desc.shape[1]} slots "

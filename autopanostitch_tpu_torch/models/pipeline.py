@@ -34,6 +34,7 @@ import torch
 
 from autopanostitch_tpu_torch import device as device_mod
 from autopanostitch_tpu_torch.config import StitchConfig
+from autopanostitch_tpu_torch.kernels import knn, sift_window
 from autopanostitch_tpu_torch.models import bundle as bundle_stage
 from autopanostitch_tpu_torch.models import bundle_h as bundle_h_stage
 from autopanostitch_tpu_torch.models import crop as crop_stage
@@ -363,9 +364,13 @@ def connected_components(n: int, pairs: np.ndarray, accepted: np.ndarray) -> np.
     return np.array([find(i) for i in range(n)])
 
 
-def _check_supported(cfg: StitchConfig) -> None:
+def _check_supported(cfg: StitchConfig, dev: torch.device) -> None:
     if cfg.post.show_panorama_imgs_nums:
         raise _not_ported("panorama annotations (show_panorama_imgs_nums)", "A11.6")
+    if dev.type == "cuda":  # the kernels' limits, before any work is done
+        det = cfg.detector
+        sift_window.check_grid(det.descriptor_width, det.descriptor_bins)
+        knn.check_width(det.descriptor_width ** 2 * det.descriptor_bins)
 
 
 def _upload(stack, dev):
@@ -384,8 +389,8 @@ def stitch(image_set: ImageSet, cfg: StitchConfig = StitchConfig(), seed: int = 
     """Stitch an unordered image set into one or more panoramas on `device`
     (no fallback: a CUDA device that is missing raises). Randomness comes
     from torch.Generators seeded from `seed` (see the module doc)."""
+    _check_supported(cfg, torch.device(device))
     dev = device_mod.resolve(device)
-    _check_supported(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     n = image_set.n

@@ -5,8 +5,10 @@ Same pipeline and numerics as the reference: Gaussian/DoG pyramid
 pre-filter, top-`cap` candidates by |DoG|, closed-form quadratic subpixel
 refinement, contrast and edge tests, 36-bin orientation histogram on a
 small window, oriented-candidate selection, and the 4x4x8 descriptor by
-dense-window soft binning on a large window. Every per-keypoint window is
-fetched by the window-gather kernel B2 (`kernels/window_gather.py`).
+dense-window soft binning on a large window. Both window phases run in
+the fused kernels of B2 (`kernels/sift_window.py`), one launch per phase
+for all keypoints of an octave of an image group: they read each window
+from the magnitude/angle stack into shared memory and bin it there.
 
 Top-k selections use a STABLE descending sort: `jax.lax.top_k` keeps the
 lower index on ties and torch.topk promises no order there.
@@ -21,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from autopanostitch_tpu_torch.config import DetectorConfig
-from autopanostitch_tpu_torch.kernels.window_gather import gather_windows
+from autopanostitch_tpu_torch.kernels.sift_window import descriptor, orient_hist, smooth_hist
 
 _INIT_SIGMA = 0.5
 _ORI_BINS = 36
@@ -29,7 +31,6 @@ _ORI_SIGMA_FACTOR = 1.5
 _ORI_RADIUS_FACTOR = 3.0
 _ORI_PEAK_RATIO = 0.8
 _DESC_SCALE_FACTOR = 3.0
-_DESC_MAG_CLIP = 0.2
 
 
 class SiftFeatures(NamedTuple):
@@ -48,11 +49,6 @@ def top_k_stable(x, k: int):
     lower index (jax.lax.top_k's order)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
-
-
-def _bf16(x):
-    """Round float32 to bfloat16 and back (the reference's operand rounding)."""
-    return x.to(torch.bfloat16).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -210,46 +206,6 @@ def _grad_maps(gauss):
     return dx, dy
 
 
-def _soft_bins(vals, nb: int, circular: bool):
-    """(K, P) bin coordinates -> (K, P, nb) linear soft-assignment weights."""
-    v0 = torch.floor(vals)
-    f = vals - v0
-    i0 = v0.long()
-    out = torch.zeros(vals.shape + (nb,), dtype=vals.dtype, device=vals.device)
-    if circular:
-        out.scatter_(-1, (i0 % nb)[..., None], (1 - f)[..., None])
-        out.scatter_add_(-1, ((i0 % nb + 1) % nb)[..., None], f[..., None])
-    else:
-        in0 = ((i0 >= 0) & (i0 < nb)).to(vals.dtype)
-        in1 = ((i0 + 1 >= 0) & (i0 + 1 < nb)).to(vals.dtype)
-        out.scatter_(-1, i0.clamp(0, nb - 1)[..., None], ((1 - f) * in0)[..., None])
-        out.scatter_add_(-1, (i0 + 1).clamp(0, nb - 1)[..., None], (f * in1)[..., None])
-    return out
-
-
-def _window_grid(Hw: int, Ww: int, lx, ly):
-    """(K, Hw, Ww) offsets of every window pixel from the keypoint."""
-    dev = lx.device
-    wy = torch.arange(Hw, dtype=torch.float32, device=dev)[None, :, None]
-    wx = torch.arange(Ww, dtype=torch.float32, device=dev)[None, None, :]
-    return wx - lx[:, None, None], wy - ly[:, None, None]
-
-
-def _orientation_hist_dense(wmag, wang, lx, ly, sigma_rel):
-    """(K, Hw, Ww) magnitude/angle windows -> (K, 36) smoothed histograms."""
-    K, Hw, Ww = wmag.shape
-    rx, ry = _window_grid(Hw, Ww, lx, ly)
-    r2 = rx * rx + ry * ry
-    sw = (_ORI_SIGMA_FACTOR * sigma_rel)[:, None, None]
-    wgt = torch.exp(-r2 / (2 * sw * sw)) * (r2 <= (_ORI_RADIUS_FACTOR * sw) ** 2)
-    contrib = (wmag * wgt).reshape(K, 1, -1)
-    binf = ((wang / (2 * math.pi) * _ORI_BINS) % _ORI_BINS).reshape(K, -1)
-    hist = torch.bmm(contrib, _soft_bins(binf, _ORI_BINS, circular=True))[:, 0]
-    for _ in range(2):
-        hist = (torch.roll(hist, 1, -1) + hist + torch.roll(hist, -1, -1)) / 3.0
-    return hist
-
-
 def _dominant_orientations(hist):
     """(K, 36) -> primary + strongest secondary peak >= 0.8 max, parabolic
     interpolation: (theta (K, 2), ok (K, 2))."""
@@ -279,40 +235,6 @@ def _dominant_orientations(hist):
     return theta, ok
 
 
-def _descriptor_dense(wmag, wang, lx, ly, sigma_rel, theta, d: int = 4, nbins: int = 8):
-    """(K, Hw, Ww) windows -> (K, d*d*nbins) descriptors.
-
-    The reference contracts bfloat16-rounded soft-bin weights with float32
-    accumulation (`sift._descriptor_dense`); the same operands are rounded
-    through bfloat16 here so both packages bin identical numbers, and the
-    contraction accumulates in float32."""
-    K, Hw, Ww = wmag.shape
-    cell = (_DESC_SCALE_FACTOR * sigma_rel)[:, None, None]
-    cos_t = torch.cos(theta)[:, None, None]
-    sin_t = torch.sin(theta)[:, None, None]
-    rx, ry = _window_grid(Hw, Ww, lx, ly)
-    u = (cos_t * rx + sin_t * ry) / cell
-    v = (-sin_t * rx + cos_t * ry) / cell
-    rbin = (v + d / 2.0 - 0.5).reshape(K, -1)
-    cbin = (u + d / 2.0 - 0.5).reshape(K, -1)
-    ang = wang - theta[:, None, None]
-    obin = ((ang / (2 * math.pi) * nbins) % nbins).reshape(K, -1)
-    wsig = 0.5 * d
-    wgt = torch.exp(-(u * u + v * v) / (2 * wsig * wsig))
-    contrib = (wmag * wgt).reshape(K, -1)
-
-    R = _bf16(_soft_bins(rbin, d, circular=False))
-    C = _bf16(_soft_bins(cbin, d, circular=False))
-    O = _bf16(_soft_bins(obin, nbins, circular=True))
-    cb = _bf16(contrib)
-    Wrc = _bf16(_bf16(cb[..., None] * R)[..., :, None] * C[..., None, :]).reshape(K, -1, d * d)
-    desc = torch.bmm(Wrc.transpose(1, 2), O).reshape(K, -1)
-    desc = desc / torch.clamp(torch.linalg.vector_norm(desc, dim=-1, keepdim=True), min=1e-8)
-    desc = torch.clamp(desc, max=_DESC_MAG_CLIP)
-    desc = desc / torch.clamp(torch.linalg.vector_norm(desc, dim=-1, keepdim=True), min=1e-8)
-    return desc
-
-
 def _octave_caps(cfg: DetectorConfig):
     return [max(128, cfg.max_keypoints >> o) for o in range(cfg.num_octaves)]
 
@@ -321,30 +243,31 @@ def _ceil_to(v: int, m: int) -> int:
     return ((v + m - 1) // m) * m
 
 
-def _map_per_kp(fn, dxy, lev, yc, xc, args, win: int, chunk: int):
-    """fn(wmag, wang, *args_chunk) over every keypoint's (win, win) window.
+def _flat(*xs):
+    """(G, Kc) per-keypoint tensors -> (G * Kc,) contiguous: int64 ones as
+    int32, float ones as they are."""
+    return [x.reshape(-1).to(torch.int32 if x.dtype == torch.int64 else x.dtype).contiguous()
+            for x in xs]
 
-    dxy (G, S3, Ho, Wo, 2) channel-last magnitude/angle stacks; lev/yc/xc
-    (G, Kc) window level and top-left corner; args (G, Kc, ...). The
-    windows come from B2 over the flattened (image, level) axis, `chunk`
-    keypoints at a time so the window working set stays bounded. Returns fn's
-    outputs reshaped to (G, Kc, ...)."""
-    G, S3, Hp, Wp, _ = dxy.shape
-    Kc = lev.shape[1]
-    src = dxy.reshape(G * S3, Hp, Wp, 2).contiguous()
-    img_of = torch.arange(G, dtype=torch.int32, device=dxy.device)[:, None] * S3
-    lev_f = (img_of + lev).reshape(-1).to(torch.int32).contiguous()
-    y_f = yc.reshape(-1).to(torch.int32).contiguous()
-    x_f = xc.reshape(-1).to(torch.int32).contiguous()
-    args_f = [a.reshape((G * Kc,) + a.shape[2:]) for a in args]
-    outs = []
-    for s in range(0, G * Kc, chunk):
-        e = min(s + chunk, G * Kc)
-        wins = gather_windows(src, lev_f[s:e], y_f[s:e], x_f[s:e], win, win)
-        outs.append(fn(wins[..., 0], wins[..., 1], *[a[s:e] for a in args_f]))
-    if isinstance(outs[0], tuple):
-        return tuple(torch.cat(o).reshape((G, Kc) + o[0].shape[1:]) for o in zip(*outs))
-    return torch.cat(outs).reshape((G, Kc) + outs[0].shape[1:])
+
+def _orientation_phase(src, lev, ys, xs, lx, ly, sigma_rel, win: int, chunk: int):
+    """Dominant orientations of (G, Kc) keypoints whose (win, win) windows
+    start at (lev, ys, xs) of the flattened (G * S3, Ho, Wo, 2) stack `src`:
+    (theta (G, Kc, 2), ok (G, Kc, 2))."""
+    G, Kc = lev.shape
+    hist = orient_hist(src, *_flat(lev, ys, xs, lx, ly, sigma_rel), win, chunk=chunk)
+    theta, ok = _dominant_orientations(smooth_hist(hist))
+    return theta.reshape(G, Kc, 2), ok.reshape(G, Kc, 2)
+
+
+def _descriptor_phase(src, lev, ys, xs, lx, ly, sigma_rel, theta, win: int,
+                      cfg: DetectorConfig, chunk: int):
+    """Descriptors (G, Kc, d*d*nbins) of oriented keypoints, windows as in
+    `_orientation_phase`."""
+    G, Kc = lev.shape
+    desc = descriptor(src, *_flat(lev, ys, xs, lx, ly, sigma_rel, theta), win,
+                      cfg.descriptor_width, cfg.descriptor_bins, chunk=chunk)
+    return desc.reshape(G, Kc, -1)
 
 
 def _extract_group(imgs, cfg: DetectorConfig, chunk: int) -> SiftFeatures:
@@ -369,7 +292,7 @@ def _extract_group(imgs, cfg: DetectorConfig, chunk: int) -> SiftFeatures:
         sigma_rel = cfg.sigma * torch.pow(k, layer)
         level = torch.clamp(torch.round(layer).long(), 0, gauss.shape[1] - 1)
 
-        Ho, Wo = gauss.shape[2:]
+        S3, Ho, Wo = gauss.shape[1:]
         srel_max = cfg.sigma * 2.0 ** ((s + 0.5) / s)
         r_desc = (_DESC_SCALE_FACTOR * srel_max * math.sqrt(2.0)
                   * (cfg.descriptor_width + 1) / 2.0)
@@ -382,17 +305,14 @@ def _extract_group(imgs, cfg: DetectorConfig, chunk: int) -> SiftFeatures:
             cy = torch.clamp(torch.round(yq).long() - win // 2, 0, max(Ho - win, 0))
             return cy, cx
 
+        src = dxy.reshape(G * S3, Ho, Wo, 2)  # the image batch flattened into the levels
+        img_of = torch.arange(G, device=dxy.device)[:, None] * S3
+
         # ---- orientation phase (small window) ----
         oy, ox = corners(Wori, x_sub, y_sub)
-        lx = x_sub - ox.float()
-        ly = y_sub - oy.float()
-
-        def fn_ori(wmag, wang, lxk, lyk, srel):
-            return _dominant_orientations(_orientation_hist_dense(wmag, wang, lxk, lyk, srel))
-
-        thetas, th_ok = _map_per_kp(
-            fn_ori, dxy, level, oy, ox, (lx, ly, sigma_rel), Wori, chunk
-        )  # (G, cap, 2) each
+        thetas, th_ok = _orientation_phase(
+            src, img_of + level, oy, ox, x_sub - ox.float(), y_sub - oy.float(), sigma_rel,
+            Wori, chunk)  # (G, cap, 2) each
 
         # ---- oriented-candidate selection ----
         ok2 = valid[:, :, None] & th_ok
@@ -410,17 +330,10 @@ def _extract_group(imgs, cfg: DetectorConfig, chunk: int) -> SiftFeatures:
 
         # ---- descriptor phase ----
         dyc, dxc = corners(Wwin, xs_s, ys_s)
-        lx2 = xs_s - dxc.float()
-        ly2 = ys_s - dyc.float()
-
-        def fn_desc(wmag, wang, lxk, lyk, srel, theta):
-            return _descriptor_dense(wmag, wang, lxk, lyk, srel, theta,
-                                     cfg.descriptor_width, cfg.descriptor_bins)
-
-        desc = _map_per_kp(
-            fn_desc, dxy, lv_s, dyc, dxc, (lx2, ly2, sr_s, th_s), Wwin, chunk
-        )
-        del dxy
+        desc = _descriptor_phase(
+            src, img_of + lv_s, dyc, dxc, xs_s - dxc.float(), ys_s - dyc.float(), sr_s, th_s,
+            Wwin, cfg, chunk)
+        del dxy, src
         parts.append(dict(
             xy=torch.stack([xs_s, ys_s], dim=-1) * stride,
             scale=sr_s * stride,
@@ -454,14 +367,12 @@ def _extract_group(imgs, cfg: DetectorConfig, chunk: int) -> SiftFeatures:
 
 
 def extract_batch(imgs, cfg: DetectorConfig = DetectorConfig(), group: int = 50,
-                  chunk: int | None = None) -> SiftFeatures:
+                  chunk: int = 256) -> SiftFeatures:
     """SIFT over same-size grayscale images (N, H, W) -> SiftFeatures
     (N, max_keypoints, ...). Images run `group` at a time (as the
-    reference); window phases run `chunk` keypoints at a time (default 1024
-    on CUDA, 256 on the CPU — per-keypoint work, so the chunk changes no
-    result)."""
-    if chunk is None:
-        chunk = 1024 if imgs.device.type == "cuda" else 256
+    reference). On the card each window phase is one kernel launch per
+    octave of a group; on the CPU the plain versions bin `chunk` keypoints'
+    windows at a time (per-keypoint work, so the chunk changes no result)."""
     N = imgs.shape[0]
     G = max(1, min(group, N))
     outs = [_extract_group(imgs[g : g + G], cfg, chunk) for g in range(0, N, G)]

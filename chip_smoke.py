@@ -12,15 +12,29 @@ Phases, each printing its own lines:
   3. B1 (pooled exact k-NN) against its plain version at the slice's shapes;
   3b. B1's pair-list mode against its plain version at the pairwise
      rescue's shape (25 images x 2048 slots, all 300 pairs, both ways);
-  4. B2 (SIFT window gather) against its plain version, bit-exact;
-  Phases 3-4 time each kernel in turns with its plain version, its library
+  4. B2's first port (the SIFT window gather alone, off the main path now)
+     against its plain version, bit-exact;
+  4b. B2 fused (`sift_window.cu`: the orientation histogram and the
+     descriptor, reading windows straight from the stack) against its plain
+     versions at the ring's octave-0 shape (a (20 x 7, 600, 800, 2) stack,
+     40,960 keypoints, 40 and 80 px windows; TMA copies) and at an odd-W
+     coarse octave (32 px windows; cp.async copies): raw histograms within
+     1e-5 of each row's max, descriptors within 1e-4 (max) and 1e-6 (mean),
+     a repeat launch bit-identical;
+  Phases 3-4b time each kernel in turns with its plain version, its library
   yardstick (3/3b: `torch.cdist` + `torch.topk`, Euclidean and without the
-  masks; 4: the advanced indexing `src[L, Y, X]`) and, for B1, the bare
-  `torch.mm` / `torch.bmm` of the same product, and print the kernel's
-  bound (operations for B1: 3xTF32 on the tensor cores; bytes for B2) and
+  masks; 4: the advanced indexing `src[L, Y, X]`; 4b: none, no PyTorch call
+  computes these functions, so the unfused path, B2's gather kernel and the
+  PyTorch binning in 1,024-keypoint chunks, stands in) and, for B1, the
+  bare `torch.mm` / `torch.bmm` of the same product, and print the kernel's
+  bound (operations for B1: 3xTF32 on the tensor cores; bytes for B2;
+  for 4b the larger of bytes, the stack pixels the windows cover, counted
+  as their union level by level, and float32 + tensor-core operations) and
   its share of it;
   5. the default-config `stitch` of a synthetic 20-view 800x600 360-degree
-     yaw ring (f = 600 px): one panorama, focal error, PSNR;
+     yaw ring (f = 600 px): one panorama, focal error, PSNR; then the
+     feature stage again, split into its orientation and descriptor phases
+     and the rest (`features_split`);
   6. a multi-panorama folder: two interleaved 12-view 800x600 rings and a
      distractor view, ingested at 400 px with the originals kept, stitched
      with the default config in the spherical and cylindrical projections
@@ -46,7 +60,9 @@ splits the two on the card).
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -60,9 +76,10 @@ sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(HERE, "tests"))
 
 REHEARSE = "--rehearse" in sys.argv[1:]
-# one H100 SXM's published peaks at 700 W: TF32 tensor cores (dense), the
-# float32 FMA pipes, HBM3
+# one H100 SXM's published peaks at 700 W: TF32 and bf16 tensor cores
+# (dense), the float32 FMA pipes, HBM3
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
 JAX_MULTIPANO_PSNR = 49.74  # lowest ring/projection PSNR of the JAX package, dB
@@ -242,7 +259,8 @@ def phase_b2(dev, G: int, S3: int, H: int, W: int):
     g.manual_seed(0)
     src = torch.randn((G * S3, H, W, 2), generator=g, device=dev)
     rec = {}
-    K = 1024  # the main path's chunk on the GPU
+    launches0 = WG.launches
+    K = 1024  # the chunk of the unfused path
     for win in (40, 80):
         lev = torch.randint(0, G * S3, (K,), generator=g, device=dev, dtype=torch.int32)
         ys = torch.randint(0, H - win + 1, (K,), generator=g, device=dev, dtype=torch.int32)
@@ -269,7 +287,124 @@ def phase_b2(dev, G: int, S3: int, H: int, W: int):
         rec[win] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
                         bound_by=by)
     del src
+    rec["launches"] = WG.launches - launches0
     return rec
+
+
+# float32 operations per window pixel of the reference's arithmetic (counted
+# in csrc/sift_window.cu's note) and the descriptor's tensor-core flops
+ORI_OPS_PER_PX = 20
+DESC_OPS_PER_PX = 57
+DESC_MMA_FLOPS_PER_PX = 2 * 16 * 8
+
+
+def b2_fused_inputs(dev, n_lev: int, H: int, W: int, K: int, win: int, seed: int):
+    """A (n_lev, H, W, 2) magnitude/angle stack (mag >= 0, angle in
+    (-pi, pi]) and K keypoints: windows sorted by level (the main path
+    walks keypoints image by image), random in-window positions, sigma_rel
+    in [1.6, 3.5], theta in [0, 2 pi)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    u = lambda *shape: torch.rand(shape, generator=g, device=dev)  # noqa: E731
+    src = torch.stack([torch.randn((n_lev, H, W), generator=g, device=dev).abs(),
+                       math.pi - 2 * math.pi * u(n_lev, H, W)], -1).contiguous()
+    i32 = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
+    lev = i32(torch.sort(torch.randint(0, n_lev, (K,), generator=g, device=dev))[0])
+    ys = i32(torch.randint(0, H - win + 1, (K,), generator=g, device=dev))
+    xs = i32(torch.randint(0, W - win + 1, (K,), generator=g, device=dev))
+    lx, ly = (win - 1) * u(K), (win - 1) * u(K)
+    return src, lev, ys, xs, lx, ly, 1.6 + 1.9 * u(K), 2 * math.pi * u(K)
+
+
+def window_cover_bytes(n_lev: int, H: int, W: int, lev, ys, xs, win: int) -> int:
+    """Bytes of the (n_lev, H, W, 2) float32 stack that K (win, win) windows
+    cover: the union of the windows, level by level (a 2-D difference array
+    summed up), at 8 bytes a pixel."""
+    import torch
+
+    diff = torch.zeros((n_lev, H + 1, W + 1), dtype=torch.int32, device=lev.device)
+    L, Y, X = lev.long(), ys.long(), xs.long()
+    one = torch.ones(L.shape, dtype=torch.int32, device=lev.device)
+    for dy, dx, sign in ((0, 0, 1), (0, win, -1), (win, 0, -1), (win, win, 1)):
+        diff.index_put_((L, Y + dy, X + dx), sign * one, accumulate=True)
+    cover = diff.cumsum(1, dtype=torch.int32).cumsum(2, dtype=torch.int32)[:, :H, :W] > 0
+    return int(cover.sum()) * 8
+
+
+def phase_b2_fused(dev, cases):
+    """The fused B2 kernels against their plain versions on each case
+    (label, levels, H, W, K, orientation win, descriptor win). Returns
+    {"orient_hist": record, "descriptor": record} of the first case, with
+    every case's error folded into max_abs_err."""
+    import torch
+
+    from autopanostitch_tpu_torch.kernels import sift_window as SW
+    from autopanostitch_tpu_torch.kernels import window_gather as WG
+
+    recs = {}
+    for ci, (label, n_lev, H, W, K, win_o, win_d) in enumerate(cases):
+        src, lev, ys, xs, lx, ly, srel, theta = b2_fused_inputs(dev, n_lev, H, W, K, win_d, ci)
+        for name, win in (("orient_hist", win_o), ("descriptor", win_d)):
+            # the orientation window sits inside the descriptor's
+            args = (src, lev, ys, xs, lx * (win - 1) / (win_d - 1), ly * (win - 1) / (win_d - 1), srel)
+            if name == "descriptor":
+                args += (theta,)
+            kern = getattr(SW, name)
+            plain = getattr(SW, name + "_plain")
+            out_k = kern(*args, win)
+            again = kern(*args, win)
+            out_p = plain(*args, win, chunk=1024)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            same = bool(torch.equal(out_k, again))
+            diff = (out_k - out_p).abs()
+            err = float(diff.max()) if K else 0.0
+            if name == "orient_hist":
+                scale = out_p.abs().amax(1, keepdim=True).clamp(min=1e-30)
+                rel = float((diff / scale).max()) if K else 0.0
+                ok, gate = rel <= 1e-5, f"max |diff| / row max {rel:.3e} (gate 1e-5)"
+                n_out, ops = 36, ORI_OPS_PER_PX * K * win * win / FP32_FLOPS
+            else:
+                mean = float(diff.mean()) if K else 0.0
+                ok = err <= 1e-4 and mean <= 1e-6
+                gate = f"max |diff| {err:.3e} (gate 1e-4) mean {mean:.3e} (gate 1e-6)"
+                n_out = 128
+                ops = (DESC_OPS_PER_PX * K * win * win / FP32_FLOPS
+                       + DESC_MMA_FLOPS_PER_PX * K * win * win / BF16_FLOPS)
+            del out_p, again
+            ms = time_ms(lambda: kern(*args, win), dev)
+            unfused_ms = time_ms(lambda: plain(*args, win, chunk=1024, gather=WG.gather_windows),
+                                 dev, reps=3)
+            plain_ms = time_ms(lambda: plain(*args, win, chunk=1024), dev, reps=3)
+            # the stack pixels the windows cover, read once; the per-keypoint
+            # inputs read and the outputs written once
+            covered = window_cover_bytes(n_lev, H, W, lev, ys, xs, win)
+            nbytes = covered + K * 4 * len(args[1:]) + K * n_out * 4
+            t_bytes = nbytes / HBM_BYTES * 1e3
+            bound, by = (ops * 1e3, "operations") if ops * 1e3 >= t_bytes else (t_bytes, "bytes")
+            route = SW.copy_route(src, win, name)
+            log(f"B2 fused {name} {label}: K={K} win={win} src={tuple(src.shape)} copy {route}"
+                f" | {gate} repeat bit-identical={same} | kernel {ms:.3f} ms unfused (B2 gather +"
+                f" PyTorch binning) {unfused_ms:.3f} ms plain {plain_ms:.3f} ms | bound "
+                f"{bound:.4f} ms ({by}; bytes {nbytes / 1e6:.1f} MB at {HBM_BYTES / 1e12:.2f} TB/s"
+                f" {t_bytes:.4f} ms, of which the windows' union {covered / 1e6:.1f} MB of "
+                f"{src.numel() * 4 / 1e6:.1f} MB; operations {ops * 1e3:.4f} ms), "
+                f"share {bound / ms:.1%}")
+            if not (ok and same):
+                raise AssertionError(f"B2 fused {name} {label} disagrees with its plain version "
+                                     f"or is not deterministic")
+            if name in recs:
+                recs[name]["err"] = max(recs[name]["err"], err)
+                recs[name][label] = dict(ms=ms, unfused_ms=unfused_ms, plain_ms=plain_ms,
+                                         bound_ms=bound, copy=route)
+            else:
+                recs[name] = dict(err=err, ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
+                                  library_ms=None, bound_ms=bound, bound_by=by, K=K, win=win,
+                                  copy=route, window_union_bytes=covered)
+        del src
+    return recs
 
 
 def ring_scene(n: int, f: float, w: int, h: int, env_hw):
@@ -438,8 +573,84 @@ def phase_slice(dev, n: int, f_true: float, w: int, h: int, env_hw):
         raise AssertionError(f"focal error {ferr:.3f} % >= 1 %")
     if not psnr >= 40.0:
         raise AssertionError(f"PSNR {psnr:.2f} dB < 40 dB")
-    require_launches("slice", counts, ("knn", "window_gather"), dev)
+    require_launches("slice", counts, ("knn", "orient_hist", "descriptor"), dev)
+    split = features_split(iset.images, iset.sizes, dev)
+    log("slice: features stage split s " + json.dumps(split))
     return counts
+
+
+def sync(dev) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def phase_timers(dev, spent: dict):
+    """Wrap SIFT's window phases (`ops.sift._orientation_phase` /
+    `_descriptor_phase`) with synchronising timers that add their seconds
+    to spent["orientation"] / spent["descriptor"]."""
+    from autopanostitch_tpu_torch.ops import sift
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync(dev)
+            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    names = {"_orientation_phase": "orientation", "_descriptor_phase": "descriptor"}
+    saved = {n: getattr(sift, n) for n in names}
+    try:
+        for n, key in names.items():
+            setattr(sift, n, timed(saved[n], key))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(sift, n, fn)
+
+
+def features_split(images, sizes, dev, reps: int = 3) -> dict:
+    """The feature stage of (N, H, W, 3) uint8 `images` on `dev`, seconds:
+    its wall time with no timers inside, then the same run split into the
+    orientation phase, the descriptor phase and the rest (pyramid,
+    gradients, detection, selection), each phase ending in a synchronize;
+    medians of `reps` runs after a warm-up, and the window phases' kernel
+    launches of one run."""
+    import torch
+
+    from autopanostitch_tpu_torch import kernels
+    from autopanostitch_tpu_torch.config import DetectorConfig
+    from autopanostitch_tpu_torch.models import features
+
+    imgs = torch.as_tensor(images, device=dev)
+
+    def run():
+        sync(dev)
+        t0 = time.perf_counter()
+        features.extract_features(imgs, sizes, DetectorConfig())
+        sync(dev)
+        return time.perf_counter() - t0
+
+    run()  # warm-up
+    walls = [run() for _ in range(reps)]
+    splits = []
+    for _ in range(reps):
+        spent = {}
+        with phase_timers(dev, spent):
+            kernels.reset_launch_counts()
+            total = run()
+        splits.append(dict(total=total, **spent))
+    counts = {k: v for k, v in kernels.launch_counts().items() if k not in ("knn", "knn_pairs")}
+    med = {k: float(np.median([s[k] for s in splits])) for k in splits[0]}
+    return dict(features=float(np.median(walls)), orientation=med["orientation"],
+                descriptor=med["descriptor"],
+                rest=med["total"] - med["orientation"] - med["descriptor"], launches=counts)
 
 
 def run_stitch(label: str, iset, cfg, dev):
@@ -495,7 +706,7 @@ def phase_multipano(dev, n: int, f_true: float, w: int, h: int, env_hw, limit: i
             raise AssertionError(f"focal error {ferr:.3f} % >= 1 %")
         if not min(psnr.values()) >= psnr_min:
             raise AssertionError(f"PSNR {psnr} below {psnr_min} dB")
-    require_launches("multipano", counts, ("knn", "knn_pairs", "window_gather"), dev)
+    require_launches("multipano", counts, ("knn", "knn_pairs", "orient_hist", "descriptor"), dev)
     return counts
 
 
@@ -518,7 +729,7 @@ def phase_planar(dev, w: int, h: int, psnr_min: float):
         raise AssertionError(f"corner error {err:.3f} px >= 1 px")
     if not psnr >= psnr_min:
         raise AssertionError(f"PSNR {psnr:.2f} dB < {psnr_min} dB")
-    require_launches("planar", counts, ("knn", "window_gather"), dev)
+    require_launches("planar", counts, ("knn", "orient_hist", "descriptor"), dev)
     return counts
 
 
@@ -528,6 +739,8 @@ def main() -> int:
     if REHEARSE:
         dev = torch.device("cpu")
         sizes = dict(F=2048, n_img=4, pairs=(6, 256), b2=(2, 8, 96, 128),
+                     b2f=[("octave0", 2 * 7, 96, 128, 64, 40, 80),
+                          ("odd_w_coarse", 2 * 7, 38, 51, 16, 32, 32)],
                      ring=(12, 240.0, 320, 240, (512, 1024)),
                      multi=(10, 240.0, 320, 240, (512, 1024), 200, 35.0), planar=(320, 240, 40.0))
     else:
@@ -537,6 +750,8 @@ def main() -> int:
             return 1
         dev = torch.device("cuda", 0)
         sizes = dict(F=20 * 2048, n_img=20, pairs=(25, 2048), b2=(20, 8, 600, 800),
+                     b2f=[("octave0", 20 * 7, 600, 800, 20 * 2048, 40, 80),
+                          ("odd_w_coarse", 20 * 7, 38, 51, 20 * 128, 32, 32)],
                      ring=(20, 600.0, 800, 600, (1024, 2048)),
                      multi=(12, 600.0, 800, 600, (1024, 2048), 400, JAX_MULTIPANO_PSNR - 3.0),
                      planar=(800, 600, JAX_PLANAR_PSNR - 3.0))
@@ -571,6 +786,7 @@ def main() -> int:
     b1 = phase_b1(dev, sizes["F"], sizes["n_img"])
     b1p = phase_b1_pairs(dev, *sizes["pairs"])
     b2 = phase_b2(dev, *sizes["b2"])
+    b2f = phase_b2_fused(dev, sizes["b2f"])
     runs = [phase_slice(dev, *sizes["ring"]), phase_multipano(dev, *sizes["multi"]),
             phase_planar(dev, *sizes["planar"])]
     counts = {k: sum(c[k] for c in runs) for k in runs[0]}
@@ -592,10 +808,23 @@ def main() -> int:
         {"name": "window_gather", "route": "cuda",
          "source": "autopanostitch_tpu_torch/csrc/window_gather.cu",
          "replaces": "autopanostitch_tpu/ops/pallas/window_gather.py:78",
-         "launches": counts["window_gather"],
+         "launches": counts["window_gather"], "phase4_launches": b2["launches"],
          "max_abs_err": max(b2[40]["err"], b2[80]["err"]),
          **{k: b2[80][k] for k in keys},
          "bound_unit": "bytes (80 px windows read once and written once) at 3.35 TB/s"},
+    ] + [
+        {"name": name, "route": "cuda", "source": "autopanostitch_tpu_torch/csrc/sift_window.cu",
+         "replaces": "autopanostitch_tpu/ops/pallas/window_gather.py:78",
+         "launches": counts[name], "max_abs_err": b2f[name]["err"],
+         **{k: b2f[name][k] for k in keys + ("unfused_ms", "K", "win", "copy",
+                                             "window_union_bytes")},
+         "odd_w_coarse": b2f[name]["odd_w_coarse"],
+         "bound_unit": "the larger of bytes (the stack pixels the windows cover read once, "
+                       "per-keypoint inputs and outputs) at 3.35 TB/s and float32 operations "
+                       "at 67 TFLOP/s"
+                       + (" plus 2 x 16 x 8 bf16 tensor-core flops a pixel at 989 TFLOP/s"
+                          if name == "descriptor" else "")}
+        for name in ("orient_hist", "descriptor")
     ]}
     if REHEARSE:
         log(json.dumps(kernels))

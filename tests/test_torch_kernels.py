@@ -171,7 +171,8 @@ def test_library_is_named_by_source_hash():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libapst_kernels_")
     assert p == _build.library_path()
-    assert {s.name for s in _build.CSRC.glob("*.cu")} == {"knn.cu", "window_gather.cu"}
+    assert {s.name for s in _build.CSRC.glob("*.cu")} == {"knn.cu", "sift_window.cu",
+                                                           "window_gather.cu"}
 
 
 @pytest.mark.cuda
