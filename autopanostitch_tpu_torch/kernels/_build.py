@@ -2,9 +2,10 @@
 
 Each `csrc/*.cu` compiles in its own `nvcc` process, all started together,
 and one more `nvcc` links the objects into a shared library with a plain C
-interface (no PyTorch headers: the build takes under a minute, most of it
-`knn.cu`'s 42 template instances, where a `torch.utils.cpp_extension` build
-of one small file took minutes). The library lands in
+interface (no PyTorch headers: the build takes about a minute, most of it
+B1's template instances, split over `knn.cu` and `knn_wide.cu` so that two
+`nvcc`s share them, where a `torch.utils.cpp_extension` build of one small
+file took minutes). The library lands in
 `autopanostitch_tpu_torch/_build/`, named by a hash of the sources and the
 flags, so a changed source rebuilds and an unchanged one loads at once.
 

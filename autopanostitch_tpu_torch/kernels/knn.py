@@ -22,7 +22,10 @@ The kernel chooses the k winners from q.t products on the TF32 tensor cores
 with a 3xTF32 split, which keeps float32 accuracy (~1e-6 in the distance of
 unit descriptors, exact on small-integer ones), then recomputes the
 winners' distances in float32 from direct differences (an exact duplicate
-reads 0); the plain version uses float32 matmuls with TF32 off.
+reads 0); the plain version uses float32 matmuls with TF32 off. Widths up
+to 256 (the corner detectors' binary descriptors): on {0,1} vectors every
+product is exact, so ties keep the plain version's (distance, index) order
+bit for bit.
 """
 
 from __future__ import annotations
@@ -82,11 +85,14 @@ def _knn_cuda(desc_q, qid, desc_t, tid, k, self_idx):
     return idx, dist
 
 
+MAX_WIDTH = 256  # widest descriptor the kernel takes (csrc/knn.cuh DMAX)
+
+
 def check_width(D: int, name: str = "knn kernel") -> None:
     """Raise ValueError unless the kernel takes descriptors of width D (a
-    multiple of 32, <= 128)."""
-    if D % 32 or not 0 < D <= 128:
-        raise ValueError(f"{name}: descriptor width {D} must be a multiple of 32 <= 128")
+    multiple of 32, <= 256)."""
+    if D % 32 or not 0 < D <= MAX_WIDTH:
+        raise ValueError(f"{name}: descriptor width {D} must be a multiple of 32 <= {MAX_WIDTH}")
 
 
 def knn(desc_q, qid, desc_t, tid, k: int, self_idx=None):
@@ -94,7 +100,7 @@ def knn(desc_q, qid, desc_t, tid, k: int, self_idx=None):
 
     desc_q (Fq, D) / desc_t (Ft, D) float32; qid (Fq,) / tid (Ft,) int32
     image ids with the mask encoding of the module doc; self_idx (Fq,) int32
-    or None. CUDA tensors launch the kernel (D a multiple of 32, <= 128;
+    or None. CUDA tensors launch the kernel (D a multiple of 32, <= 256;
     k <= 8); CPU tensors take the plain version.
     """
     tensors = [desc_q, qid, desc_t, tid] + ([] if self_idx is None else [self_idx])
@@ -176,7 +182,7 @@ def knn_pairs(desc, valid, pairs, k: int = 2):
     idx are slots of the target image, ascending distance, ties -> lower
     slot. Only invalid targets are masked (BIG); invalid queries keep their
     true neighbours. CUDA tensors launch the kernel (D a multiple of 32,
-    <= 128; k <= 2; 2 P ceil(K / 128) < 2^31 blocks); CPU tensors take the
+    <= 256; k <= 2; 2 P ceil(K / 128) < 2^31 blocks); CPU tensors take the
     plain version.
     """
     devs = {t.device for t in (desc, valid, pairs)}

@@ -1,5 +1,7 @@
-"""Feature-extraction stage: (N, H, W, 3) image stack -> batched SIFT
-(port of `models/features.py` for the SIFT detector)."""
+"""Feature-extraction stage: (N, H, W, 3) image stack -> batched features
+(port of `models/features.py`): SIFT, the corner detectors with binary
+descriptors (HARRIS, FAST, ORB, BRISK), SURF's determinant of Hessian and
+KAZE, dispatched on `DetectorConfig.detector`."""
 
 from __future__ import annotations
 
@@ -7,9 +9,19 @@ import numpy as np
 import torch
 
 from autopanostitch_tpu_torch.config import DetectorConfig
+from autopanostitch_tpu_torch.ops import corners, doh, kaze, sift
 from autopanostitch_tpu_torch.ops import sampling as samp
-from autopanostitch_tpu_torch.ops import sift
 from autopanostitch_tpu_torch.ops.sift import SiftFeatures
+
+BINARY_DETECTORS = ("HARRIS", "FAST", "ORB", "BRISK")  # 256-bit {0,1} descriptors
+
+
+def descriptor_width(cfg: DetectorConfig) -> int:
+    """Width of the descriptors cfg.detector gives: 256 bits for the corner
+    detectors, descriptor_width^2 * descriptor_bins for SIFT, SURF, KAZE."""
+    if cfg.detector.upper() in BINARY_DETECTORS:
+        return 256
+    return cfg.descriptor_width ** 2 * cfg.descriptor_bins
 
 
 def upsample_levels(cfg: DetectorConfig, sizes) -> int:
@@ -25,13 +37,11 @@ def upsample_levels(cfg: DetectorConfig, sizes) -> int:
 
 def extract_features(images, sizes, cfg: DetectorConfig = DetectorConfig(),
                      border: int = 6) -> SiftFeatures:
-    """SIFT on an (N, H, W, 3) padded stack (uint8 or float in [0, 1]) on
-    any device; keypoints in the padding or within `border` px of the valid
-    edge are masked. Other detectors are not ported yet (ROADMAP A11)."""
-    if cfg.detector.upper() not in ("SIFT", "VL_SIFT"):
-        raise NotImplementedError(
-            f"detector {cfg.detector!r} is not ported yet (ROADMAP A11); the port runs SIFT"
-        )
+    """Features of an (N, H, W, 3) padded stack (uint8 or float in [0, 1])
+    on any device, by cfg.detector: 'HARRIS' | 'FAST' | 'ORB' | 'BRISK'
+    (256-bit {0,1} descriptors), 'SURF', 'KAZE', else SIFT. Keypoints in the
+    padding or within `border` px of the valid edge are masked; the
+    upsample levels apply to every detector."""
     levels = upsample_levels(cfg, sizes)
     if images.dtype == torch.uint8:
         images = images.float() / 255.0
@@ -44,7 +54,16 @@ def extract_features(images, sizes, cfg: DetectorConfig = DetectorConfig(),
         gray = samp.resize(gray, (N, s * H, s * W), "linear")
         sizes_t = sizes_t * s
         scale_back = 1.0 / s
-    feats = mask_borders(sift.extract_batch(gray, cfg), sizes_t, border)
+    det = cfg.detector.upper()
+    if det in BINARY_DETECTORS:
+        feats = corners.extract_corners_batch(gray, cfg, det.lower())
+    elif det == "SURF":
+        feats = doh.extract_doh_batch(gray, cfg)
+    elif det == "KAZE":
+        feats = kaze.extract_kaze_batch(gray, cfg)
+    else:  # SIFT / VL_SIFT
+        feats = sift.extract_batch(gray, cfg)
+    feats = mask_borders(feats, sizes_t, border)
     if scale_back != 1.0:
         feats = feats._replace(xy=feats.xy * scale_back, scale=feats.scale * scale_back)
     return feats

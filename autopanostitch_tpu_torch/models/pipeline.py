@@ -1,7 +1,11 @@
 """End-to-end stitching pipeline on PyTorch (port of `models/pipeline.py`).
 
-SIFT -> pooled k-NN matching + ratio test (or pairwise matching) -> top-m
-candidate pairs -> batched RANSAC with Brown-Lowe acceptance -> connected
+Features (SIFT, the corner detectors with 256-bit binary descriptors, SURF's
+determinant of Hessian or KAZE) -> pooled k-NN matching + ratio test (or
+pairwise matching; binary descriptors take Hamming semantics) -> top-m
+candidate pairs -> batched RANSAC or MLESAC of any of the five
+transformation models, with the adaptive two-phase budget as an option,
+and Brown-Lowe acceptance -> connected
 components -> the pairwise rescue of a suspiciously fragmented graph ->
 per component: the second matching pass (re-resize + re-extract +
 re-match, or a pairwise re-match) -> incremental R, f, k1 bundle adjustment
@@ -16,10 +20,8 @@ where the reference folds its key with a tag (1: the pairwise second pass,
 generator from (seed, tag) (`derived_generator`), so each of those draws
 starts from the same state for every component, as the reference's folded
 keys do. The port raises NotImplementedError, naming the ROADMAP item,
-where the reference would run something it has not ported: binary
-detectors (A11.4), other transformation models and MLESAC (A11.3), the
-approximate matcher (A11.5), annotations (A11.6) and the adaptive RANSAC
-budget.
+where the reference would run something it has not ported: the
+approximate matcher (A11.5) and annotations (A11.6).
 """
 
 from __future__ import annotations
@@ -112,21 +114,25 @@ def derived_generator(device, seed: int, tag: int) -> torch.Generator:
     return g
 
 
-def _matcher_threshold(cfg: StitchConfig) -> float:
-    """The pairwise matcher's SSD threshold for float descriptors (None = no
-    cut, the scratch matcher's float default). Binary descriptors come with
-    the corner detectors (ROADMAP A11.4)."""
-    if cfg.detector.detector.upper() in ("HARRIS", "FAST", "ORB", "BRISK"):
-        raise _not_ported(f"binary-descriptor matching ({cfg.detector.detector})", "A11.4")
-    return float("inf") if cfg.matching.threshold is None else float(cfg.matching.threshold)
+def _matcher_semantics(cfg: StitchConfig):
+    """(threshold, binary) for the descriptor type of cfg.detector: binary
+    corner descriptors take linear-ratio and percent-bits semantics, and a
+    threshold of None means no cut for float descriptors, 10 percent of the
+    bits for binary ones."""
+    binary = cfg.detector.detector.upper() in features_stage.BINARY_DETECTORS
+    threshold = cfg.matching.threshold
+    if threshold is None:
+        threshold = 10.0 if binary else float("inf")
+    return float(threshold), binary
 
 
 def _all_pairs_graph(desc, mask, cfg: StitchConfig, ratio: float):
     """Pairwise-match every i < j image pair on B1's pair mode. Returns
     (pairs, pair_idx, pair_mask, counts (P,)) numpy."""
+    threshold, binary = _matcher_semantics(cfg)
     pairs, idx, m, n = mt.match_all_pairs(desc, mask, ratio=ratio,
                                           max_matches=cfg.matching.max_matches_per_pair,
-                                          threshold=_matcher_threshold(cfg))
+                                          threshold=threshold, binary=binary)
     return pairs, idx.cpu().numpy(), m.cpu().numpy(), n.cpu().numpy()
 
 
@@ -146,7 +152,7 @@ def match_features(feats: SiftFeatures, cfg: StitchConfig):
         return pairs[keep], idx[keep], m[keep], counts, counts
     nn_idx, nn_dist, best, accepted = mt.global_match_stack(
         feats.desc, feats.mask, k=cfg.matching.k, method=cfg.matching.method,
-        ratio=cfg.matching.ratio_threshold,
+        ratio=cfg.matching.ratio_threshold, binary=_matcher_semantics(cfg)[1],
     )
     F = N * K
     image_id = np.repeat(np.arange(N, dtype=np.int32), K)
@@ -215,7 +221,8 @@ def verify_matches(feats: SiftFeatures, pairs, pair_idx, pair_mask, counts,
         accept_alpha=alpha, accept_beta=beta, accept_small_min=im.accept_small_min,
         accept_small_ratio=im.accept_small_ratio,
         total=rs.num_trials(im.inliers_confidence, im.transformation_type, im.max_iter),
-        adaptive_first=im.adaptive_first_batch, generator=generator,
+        adaptive_first=im.adaptive_first_batch, confidence=im.inliers_confidence,
+        generator=generator,
         device=feats.xy.device,
     )
     return MatchGraph(pairs=pairs, pair_idx=pair_idx, pair_mask=pair_mask, H=out["H"],
@@ -289,9 +296,10 @@ def pairwise_rescue(feats: SiftFeatures, graph: MatchGraph, comps: np.ndarray, n
             cand = np.unique(np.concatenate([cand, acc.astype(np.int32)]), axis=0)
         if len(cand) == 0:
             return graph, comps, False
+        threshold, binary = _matcher_semantics(cfg)
         idx, m_, nm = (t.cpu().numpy() for t in mt.match_pair_list(
             feats.desc, feats.mask, cand, ratio=ratio,
-            max_matches=cfg.matching.max_matches_per_pair, threshold=_matcher_threshold(cfg)))
+            max_matches=cfg.matching.max_matches_per_pair, threshold=threshold, binary=binary))
         c2 = np.zeros((n, n), np.int32)
         c2[cand[:, 0], cand[:, 1]] = nm
         c2 += c2.T
@@ -369,8 +377,9 @@ def _check_supported(cfg: StitchConfig, dev: torch.device) -> None:
         raise _not_ported("panorama annotations (show_panorama_imgs_nums)", "A11.6")
     if dev.type == "cuda":  # the kernels' limits, before any work is done
         det = cfg.detector
-        sift_window.check_grid(det.descriptor_width, det.descriptor_bins)
-        knn.check_width(det.descriptor_width ** 2 * det.descriptor_bins)
+        if det.detector.upper() not in features_stage.BINARY_DETECTORS:  # B2's grid
+            sift_window.check_grid(det.descriptor_width, det.descriptor_bins)
+        knn.check_width(features_stage.descriptor_width(det))
 
 
 def _upload(stack, dev):

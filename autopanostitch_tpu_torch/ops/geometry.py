@@ -155,6 +155,121 @@ def fit_homography_4pt(src, dst, w=None):
     return _normalize_h33(H)
 
 
+def _weighted_means(src, dst, w):
+    wsum = torch.clamp(w.sum(-1), min=_EPS)[..., None]
+    return (src * w[..., None]).sum(-2) / wsum, (dst * w[..., None]).sum(-2) / wsum
+
+
+def _affine_h(A, t):
+    """(..., 2, 2) linear part and (..., 2) translation -> (..., 3, 3)."""
+    H = torch.zeros(A.shape[:-2] + (3, 3), dtype=A.dtype, device=A.device)
+    H[..., :2, :2] = A
+    H[..., :2, 2] = t
+    H[..., 2, 2] = 1.0
+    return H
+
+
+def _with_translation(A, ms, md):
+    return _affine_h(A, md - (A @ ms[..., None])[..., 0])
+
+
+def _fms(a, b, c):
+    """c - a b rounded once (a fused multiply-add): exact in float64."""
+    return (c.double() - a.double() * b.double()).to(c.dtype)
+
+
+def solve2x2(A, B):
+    """X with A X = B for (..., 2, 2) A and B: LU with partial pivoting in
+    the rounding order of the reference's `jnp.linalg.solve` on a 2x2
+    system (reciprocal pivots, fused substitution steps), so the two agree
+    bit for bit even on ill-conditioned minimal sets. A singular A gives
+    inf / nan, as there, and raises nothing."""
+    swap = (A[..., 1, 0].abs() > A[..., 0, 0].abs())[..., None, None]
+    A = torch.where(swap, A.flip(-2), A)
+    B = torch.where(swap, B.flip(-2), B)
+    a00, a01, a10, a11 = A[..., 0, 0], A[..., 0, 1], A[..., 1, 0], A[..., 1, 1]
+    r00 = 1.0 / a00
+    l = a10 * r00
+    u11 = a11 - l * a01
+    y0 = B[..., 0, :]
+    x1 = _fms(l[..., None], y0, B[..., 1, :]) * (1.0 / u11)[..., None]
+    x0 = _fms(a01[..., None], x1, y0) * r00[..., None]
+    return torch.stack([x0, x1], -2)
+
+
+def _cross(a, b):
+    """a^T b over the points: (..., M, 2) x (..., M, 2) -> (..., 2, 2).
+    Minimal sets (M <= 4) accumulate point by point, one rounding a step,
+    which is how the reference's dot rounds them: their fits are often
+    ill-conditioned, and so agree bit for bit. Larger sets take a matmul."""
+    if a.shape[-2] > 4:
+        return a.transpose(-1, -2) @ b
+    acc = torch.zeros(a.shape[:-2] + (2, 2), dtype=a.dtype, device=a.device)
+    for k in range(a.shape[-2]):
+        acc = (acc.double() + a[..., k, :, None].double() * b[..., k, None, :].double()).to(a.dtype)
+    return acc
+
+
+def fit_affine(src, dst, w):
+    """Weighted least-squares affine fit src -> dst: A = (dc^T W sc)
+    (sc^T W sc + 1e-8 I)^-1 by a 2x2 solve, as the reference. src/dst
+    (..., M, 2), w (..., M). Returns (..., 3, 3) with last row [0 0 1]."""
+    ms, md = _weighted_means(src, dst, w)
+    s0 = src - ms[..., None, :]
+    sc = s0 * w[..., None]
+    Sxx = _cross(sc, s0)
+    Sxy = _cross(sc, dst - md[..., None, :])
+    Sxx = Sxx + 1e-8 * torch.eye(2, dtype=src.dtype, device=src.device)
+    A = solve2x2(Sxx, Sxy).transpose(-1, -2)
+    return _with_translation(A, ms, md)
+
+
+def _rotation_terms(src, dst, w):
+    """(a, b, ms, md, sc) of the weighted cross-covariance C = (W dc)^T sc:
+    a = C00 + C11, b = C10 - C01."""
+    ms, md = _weighted_means(src, dst, w)
+    sc = src - ms[..., None, :]
+    dc = dst - md[..., None, :]
+    C = _cross(dc * w[..., None], sc)
+    return C[..., 0, 0] + C[..., 1, 1], C[..., 1, 0] - C[..., 0, 1], ms, md, sc
+
+
+def _rot_scale(ca, sb):
+    return torch.stack([torch.stack([ca, -sb], -1), torch.stack([sb, ca], -1)], -2)
+
+
+def fit_similarity(src, dst, w):
+    """Weighted similarity (Procrustes) fit in closed form."""
+    a, b, ms, md, sc = _rotation_terms(src, dst, w)
+    denom = torch.clamp((w[..., None] * sc * sc).sum((-2, -1)), min=_EPS)
+    return _with_translation(_rot_scale(a / denom, b / denom), ms, md)
+
+
+def fit_rigid(src, dst, w):
+    """Weighted rigid (rotation + translation) fit in closed form."""
+    a, b, ms, md, _ = _rotation_terms(src, dst, w)
+    n = torch.sqrt(torch.clamp(a * a + b * b, min=_EPS))
+    return _with_translation(_rot_scale(a / n, b / n), ms, md)
+
+
+def _weighted_median(vals, w):
+    """Smallest value whose cumulative weight reaches half the total, along
+    the last dim (zero weights ignored): a stable sort and a left-side
+    search, as the reference's argsort + searchsorted."""
+    v, order = torch.sort(vals, dim=-1, stable=True)
+    c = torch.cumsum(torch.gather(w, -1, order), -1)
+    idx = torch.searchsorted(c, 0.5 * c[..., -1:], side="left")
+    return torch.gather(v, -1, idx.clamp(0, vals.shape[-1] - 1))[..., 0]
+
+
+def fit_translation(src, dst, w):
+    """Weighted-median translation fit, per axis."""
+    d = dst - src
+    t = torch.stack([_weighted_median(d[..., 0], w), _weighted_median(d[..., 1], w)], -1)
+    eye = torch.eye(2, dtype=src.dtype, device=src.device).expand(t.shape[:-1] + (2, 2))
+    return _affine_h(eye, t)
+
+
 def transfer_error(H, src, dst):
     """|H(src) - dst| per point: H (..., 3, 3), src/dst (..., M, 2) -> (..., M)."""
     pred = homography_apply(H, src)

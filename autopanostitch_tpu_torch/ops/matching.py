@@ -1,4 +1,4 @@
-"""Descriptor matching (port of `ops/matching.py`, float descriptors).
+"""Descriptor matching (port of `ops/matching.py`).
 
 - Pooled global matching: `global_knn` IS kernel B1 (`kernels/knn.py`) in
   its pooled mode, the exact k-NN with same-image and invalid rows masked;
@@ -9,8 +9,10 @@
   list is one launch per memory-bounded chunk, and the ratio test, mutual
   check and compaction are batched over the pairs on the device.
 
-Binary descriptors come with the corner detectors and the approximate
-method is not ported yet (ROADMAP A11.4, A11.5).
+Binary ({0,1}) descriptors of the corner detectors run the same kernel:
+their squared L2 IS the Hamming distance. `binary=True` switches the ratio
+test to raw distances and the threshold to percent mismatched bits, as the
+reference does. The approximate method is not ported yet (ROADMAP A11.5).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ def global_knn(desc, mask, image_id, k: int = 4, method: str = "exhaustive"):
     -> 1e18)."""
     if method != "exhaustive":
         raise NotImplementedError(
-            f"matching method {method!r} is not ported yet (ROADMAP A11)"
+            f"matching method {method!r} is not ported yet (ROADMAP A11.5)"
         )
     ids = torch.where(mask, image_id.to(torch.int32), torch.full_like(image_id, -2, dtype=torch.int32))
     d = desc.float().contiguous()
@@ -42,25 +44,25 @@ def global_knn(desc, mask, image_id, k: int = 4, method: str = "exhaustive"):
     return knn(d, ids, d, ids, k)
 
 
-def global_ratio_test(nn_idx, nn_dist, ratio: float = 0.6):
-    """Lowe ratio on the two best cross-image neighbours, d1 < r^2 d2 on
-    squared distances (the float-descriptor rule; binary descriptors come
-    with the corner detectors, ROADMAP A11). Returns (best (F,),
-    accepted (F,))."""
+def global_ratio_test(nn_idx, nn_dist, ratio: float = 0.6, binary: bool = False):
+    """Lowe ratio on the two best cross-image neighbours: d1 < r^2 d2 on
+    squared distances, or d1 < r d2 on the raw Hamming distances of binary
+    descriptors. Returns (best (F,), accepted (F,))."""
     d1 = nn_dist[:, 0]
     d2 = nn_dist[:, 1]
-    return nn_idx[:, 0], (d1 < ratio * ratio * d2) & (d1 < float(_BIG))
+    r = ratio if binary else ratio * ratio
+    return nn_idx[:, 0], (d1 < r * d2) & (d1 < float(_BIG))
 
 
 def global_match_stack(desc, mask, k: int = 4, method: str = "exhaustive",
-                       ratio: float = 0.6):
+                       ratio: float = 0.6, binary: bool = False):
     """Pool (N, K, D) descriptors, kNN, ratio test. Returns
     (nn_idx (F, k), nn_dist (F, k), best (F,), accepted (F,)), F = N * K."""
     N, K, D = desc.shape
     image_id = torch.arange(N, dtype=torch.int32, device=desc.device).repeat_interleave(K)
     nn_idx, nn_dist = global_knn(desc.reshape(N * K, D), mask.reshape(N * K), image_id,
                                  k=k, method=method)
-    best, accepted = global_ratio_test(nn_idx, nn_dist, ratio=ratio)
+    best, accepted = global_ratio_test(nn_idx, nn_dist, ratio=ratio, binary=binary)
     return nn_idx, nn_dist, best, accepted
 
 
@@ -93,22 +95,43 @@ def two_nn(desc_q, mask_q, desc_t, mask_t):
             torch.where(mask_q, dist[:, 1], big))
 
 
-def _match_from_nn(idx, dist, mask_a, ratio: float, max_matches: int, threshold: float):
+def _threshold_cut(threshold: float, binary: bool, D: int) -> float:
+    """The distance cut: the SSD threshold itself, or (threshold / 100) D
+    mismatched bits for binary descriptors, in float32 as the reference
+    computes it (a true division)."""
+    if not binary:
+        return threshold
+    t = torch.tensor(threshold, dtype=torch.float32)
+    return float(t / torch.tensor(100.0) * D)
+
+
+def _match_from_nn(idx, dist, mask_a, ratio: float, max_matches: int, threshold: float,
+                   rule: str = "float"):
     """Ratio test, threshold, mutual check and compaction of a batch of
     pairs from their 2-NN both ways: idx/dist (P, 2, K, 2) as `knn_pairs`
     gives them (side 0 = a -> b, side 1 = b -> a), mask_a (P, Ka) the valid
-    slots of image a (Ka <= K: side 0 is read for a's Ka queries). Returns
-    (idx (P, M, 2) int32, m (P, M) bool, n (P,) int32), the reference's
-    `match_pair` per pair."""
+    slots of image a (Ka <= K: side 0 is read for a's Ka queries);
+    `threshold` is the cut of `_threshold_cut`. The ratio test by `rule`:
+    "float" d1 < r^2 d2, "binary" d1 <= r d2 (`match_pair` on binary
+    descriptors), "hamming" d1 < r d2 (`hamming.match_pair_hamming`).
+    Returns (idx (P, M, 2) int32, m (P, M) bool, n (P,) int32), the
+    reference's `match_pair` per pair."""
     Ka = mask_a.shape[1]
     big = float(_BIG)
     ia2b = idx[:, 0, :Ka, 0].long()
     d1 = torch.where(mask_a, dist[:, 0, :Ka, 0], torch.full_like(dist[:, 0, :Ka, 0], big))
     d2 = torch.where(mask_a, dist[:, 0, :Ka, 1], torch.full_like(dist[:, 0, :Ka, 1], big))
     ib2a = idx[:, 1, :, 0].long()
-    # the reference squares a float32 ratio (a traced scalar in its jit)
+    # the reference takes the ratio as a float32 (a traced scalar in its
+    # jit): squared against squared distances, linear against the raw
+    # Hamming distances of binary descriptors
     r = torch.tensor(ratio, dtype=torch.float32, device=dist.device)
-    pass_ratio = d1 < (r * r) * d2
+    if rule == "float":
+        pass_ratio = d1 < (r * r) * d2
+    elif rule == "binary":
+        pass_ratio = d1 <= r * d2
+    else:
+        pass_ratio = d1 < r * d2
     mutual = torch.gather(ib2a, 1, ia2b) == torch.arange(Ka, device=idx.device)[None]
     ok = pass_ratio & (d1 <= threshold) & mutual & mask_a & (d1 < big)
     # compact to the front by ascending distance; the sort is STABLE, so the
@@ -126,20 +149,23 @@ def _match_from_nn(idx, dist, mask_a, ratio: float, max_matches: int, threshold:
 
 
 def match_pair(desc_a, mask_a, desc_b, mask_b, ratio: float = 0.6, max_matches: int = 512,
-               threshold: float = float("inf")):
-    """Match two float descriptor sets: 2-NN both ways, Lowe ratio on
-    squared distances (d1 < r^2 d2), SSD threshold, mutual nearest check,
+               threshold: float = float("inf"), binary: bool = False):
+    """Match two descriptor sets: 2-NN both ways, Lowe ratio (d1 < r^2 d2
+    on squared distances; binary: d1 <= r d2 on Hamming distances),
+    threshold (SSD; binary: percent of the bits), mutual nearest check,
     compaction by ascending distance. Returns (idx (max_matches, 2) int32
     [ia, ib] padded 0, m (max_matches,) bool, n () int32)."""
     desc, valid = _pair_stack(desc_a, mask_a, desc_b, mask_b)
     pairs = torch.tensor([[0, 1]], dtype=torch.int32, device=desc.device)
     idx, dist = knn_pairs(desc.contiguous(), valid, pairs, 2)
-    out, m, n = _match_from_nn(idx, dist, mask_a[None], ratio, max_matches, threshold)
+    out, m, n = _match_from_nn(idx, dist, mask_a[None], ratio, max_matches,
+                               _threshold_cut(threshold, binary, desc.shape[-1]),
+                               "binary" if binary else "float")
     return out[0], m[0], n[0]
 
 
 def match_pair_list(desc, mask, pairs, ratio: float = 0.6, max_matches: int = 512,
-                    threshold: float = float("inf")):
+                    threshold: float = float("inf"), binary: bool = False):
     """Pairwise matching of an explicit (P, 2) image pair list. desc (N, K,
     D), mask (N, K), pairs (P, 2) int on the same device. The pairs go to
     kernel B1 in chunks whose working set stays near `_PAIR_CHUNK_BYTES`
@@ -153,18 +179,19 @@ def match_pair_list(desc, mask, pairs, ratio: float = 0.6, max_matches: int = 51
                 torch.zeros((0, max_matches), dtype=torch.bool, device=desc.device),
                 torch.zeros((0,), dtype=torch.int32, device=desc.device))
     desc = desc.float().contiguous()
+    cut = _threshold_cut(threshold, binary, desc.shape[-1])
     chunk = max(1, _PAIR_CHUNK_BYTES // (_PAIR_BYTES_PER_SLOT * desc.shape[1]))
     outs = []
     for s in range(0, pairs.shape[0], chunk):
         cp = pairs[s : s + chunk]
         idx, dist = knn_pairs(desc, mask, cp, 2)
-        outs.append(_match_from_nn(idx, dist, mask[cp[:, 0].long()], ratio, max_matches,
-                                   threshold))
+        outs.append(_match_from_nn(idx, dist, mask[cp[:, 0].long()], ratio, max_matches, cut,
+                                   "binary" if binary else "float"))
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
 def match_all_pairs(desc, mask, ratio: float = 0.6, max_matches: int = 512,
-                    threshold: float = float("inf")):
+                    threshold: float = float("inf"), binary: bool = False):
     """Pairwise matching over every (i < j) image pair. Returns (pairs (P, 2)
     int32 numpy, idx (P, M, 2), m (P, M), counts (P,)), P = N(N-1)/2 in
     lexicographic order."""
@@ -172,7 +199,7 @@ def match_all_pairs(desc, mask, ratio: float = 0.6, max_matches: int = 512,
     iu, ju = np.triu_indices(N, 1)
     pairs = np.stack([iu, ju], -1).astype(np.int32)
     idx, m, n = match_pair_list(desc, mask, pairs, ratio=ratio, max_matches=max_matches,
-                                threshold=threshold)
+                                threshold=threshold, binary=binary)
     return pairs, idx, m, n
 
 

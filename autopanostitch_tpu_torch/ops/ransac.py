@@ -1,14 +1,19 @@
 """Batched RANSAC / MSAC verification of candidate pairs (port of
-`ops/ransac.py`, projective model, single-phase budget).
+`ops/ransac.py`: the five transformation models, both scoring methods and
+the adaptive two-phase budget).
 
 All pairs and all hypotheses of a sub-batch run as one batched tensor
-program: minimal sets by Gumbel top-k under the validity mask, the 4-point
-solver, symmetric transfer error over every match, best-by-score, then an
-IRLS weighted-DLT refit that is kept only if it loses no inliers.
+program: minimal sets by Gumbel top-k under the validity mask, the model's
+minimal solver, symmetric transfer error over every match, best-by-score
+(inlier count for RANSAC, truncated squared loss for MLESAC), then an IRLS
+weighted refit that is kept only if it loses no inliers.
 
 Random streams: the Gumbel noise comes from an explicit torch.Generator.
 It cannot reproduce the reference's threefry keys, so `ransac_fit` also
 takes precomputed minimal-set indices (the tests inject the reference's).
+Torch cannot continue a threefry stream either: the adaptive budget's
+second phase draws afresh from the generator for the continued pairs only
+(with injected sets it takes the sets after the first sub-batch).
 """
 
 from __future__ import annotations
@@ -21,19 +26,22 @@ import torch
 
 from autopanostitch_tpu_torch.ops import geometry as geo
 
-_MIN_PTS = {"projective": 4}
+# (minimal-case fitter, weighted refit fitter, minimal point count)
+_MODEL_FITTERS = {
+    "projective": (geo.fit_homography_4pt, geo.fit_homography_dlt, 4),
+    "affine": (geo.fit_affine, geo.fit_affine, 3),
+    "similarity": (geo.fit_similarity, geo.fit_similarity, 2),
+    "rigid": (geo.fit_rigid, geo.fit_rigid, 2),
+    "translation": (geo.fit_translation, geo.fit_translation, 1),
+}
 _DESIGN_INLIER_RATIO = 0.3
 _IRLS_ITERS = 3
 _MAX_ELEMS = 1 << 26  # bounds the (pairs, hypotheses, matches) error tensor
 
 
 def model_min_pts(model: str) -> int:
-    if model not in _MIN_PTS:
-        raise NotImplementedError(
-            f"transformation {model!r} is not ported yet (ROADMAP A11); the port verifies "
-            "projective models"
-        )
-    return _MIN_PTS[model]
+    """Minimal correspondences of the model."""
+    return _MODEL_FITTERS[model][2]
 
 
 def num_trials(confidence: float, model: str, max_iter: int) -> int:
@@ -50,6 +58,20 @@ def num_trials(confidence: float, model: str, max_iter: int) -> int:
     total = max(1, min(int(max_iter), int(n_conf)))
     rounded = ((total + 63) // 64) * 64
     return rounded if rounded <= max_iter else total
+
+
+def num_trials_observed(confidence: float, model: str, w, max_iter: int):
+    """The same formula at each pair's observed inlier ratio w (host numpy):
+    how many hypotheses a pair needs, capped at max_iter."""
+    s = model_min_pts(model)
+    if confidence >= 100.0:
+        return np.full(np.shape(w), max_iter, np.int64)
+    w = np.clip(np.asarray(w, np.float64), 0.0, 0.9999)
+    denom = np.log1p(-np.minimum(w**s, 1 - 1e-12))
+    num = np.log(max(1.0 - confidence / 100.0, 1e-12))
+    with np.errstate(divide="ignore"):
+        needed = np.where(denom < 0, np.ceil(num / denom), np.inf)
+    return np.minimum(needed, max_iter).astype(np.int64)
 
 
 def sample_minimal_sets(mask, batch: int, min_pts: int, generator: torch.Generator):
@@ -95,28 +117,38 @@ def _score(err, mask, threshold: float, method: str):
 def ransac_fit(src, dst, mask, threshold: float = 5.5, model: str = "projective",
                method: str = "ransac", batch: int = 512,
                total: int | None = None, generator: torch.Generator | None = None,
-               minimal_sets=None):
-    """Robust homography src -> dst for P pairs at once.
+               minimal_sets=None, init=None):
+    """Robust model src -> dst for P pairs at once.
 
     src/dst (P, M, 2), mask (P, M). The budget `total` runs in sub-batches
     of min(batch, total) hypotheses with a running best. `minimal_sets`
-    (P, nsub, sub, 4) replaces the generator's draws. Returns dict of
-    H (P, 3, 3), inliers (P, M), num_inliers, num_putative, success."""
-    min_pts = model_min_pts(model)
+    (P, nsub, sub, p) replaces the generator's draws (and sets the
+    sub-batches). `init` = (cost (P,), H (P, 3, 3), inliers (P, M)) starts
+    from an earlier phase's pre-refit best. Returns dict of H (P, 3, 3),
+    inliers (P, M), num_inliers, num_putative, success, and that pre-refit
+    best as raw_cost, raw_H, raw_inliers."""
+    fit_min, fit_refit, min_pts = _MODEL_FITTERS[model]
     P, M, _ = src.shape
     dev = src.device
     n_valid = mask.sum(-1)
     if total is None:
         total = batch
-    nsub = max(1, (total + batch - 1) // batch)
-    sub = min(batch, total)
+    if minimal_sets is not None:
+        nsub, sub = minimal_sets.shape[1:3]
+    else:
+        nsub = max(1, (total + batch - 1) // batch)
+        sub = min(batch, total)
     m1 = mask[:, None, :]
     src1, dst1 = src[:, None], dst[:, None]
 
-    c_best = torch.full((P,), float("inf"), device=dev)
-    H0 = torch.eye(3, device=dev).expand(P, 3, 3).clone()
-    inl0 = torch.zeros((P, M), dtype=torch.bool, device=dev)
-    n_best = torch.zeros((P,), dtype=torch.long, device=dev)
+    if init is None:
+        c_best = torch.full((P,), float("inf"), device=dev)
+        H0 = torch.eye(3, device=dev).expand(P, 3, 3).clone()
+        inl0 = torch.zeros((P, M), dtype=torch.bool, device=dev)
+    else:
+        c_best, H0, inl0 = (x.to(dev) for x in init)
+    n_best = (inl0 & mask).sum(-1)
+    ones = torch.ones((P, sub, min_pts), dtype=src.dtype, device=dev)
     for c in range(nsub):
         if minimal_sets is not None:
             idx = minimal_sets[:, c].long()
@@ -125,7 +157,7 @@ def ransac_fit(src, dst, mask, threshold: float = 5.5, model: str = "projective"
         gi = idx[..., None].expand(-1, -1, -1, 2)
         src_min = torch.gather(src1.expand(-1, sub, -1, -1), 2, gi)  # (P, sub, p, 2)
         dst_min = torch.gather(dst1.expand(-1, sub, -1, -1), 2, gi)
-        Hs = geo.fit_homography_4pt(src_min, dst_min)
+        Hs = fit_min(src_min, dst_min, ones)
         err = geo.symmetric_transfer_error(Hs, src1, dst1)  # (P, sub, M)
         err = torch.where(torch.isfinite(err), err, torch.full_like(err, 1e9))
         cost, inl, n_inl = _score(err, m1, threshold, method)
@@ -146,7 +178,7 @@ def ransac_fit(src, dst, mask, threshold: float = 5.5, model: str = "projective"
     w = inl0.float()
     H_ref = H0
     for _ in range(_IRLS_ITERS):
-        H_ref = geo.fit_homography_dlt(src, dst, w)
+        H_ref = fit_refit(src, dst, w)
         e = geo.symmetric_transfer_error(H_ref, src, dst)
         w = torch.where((e < threshold) & mask,
                         1.0 / torch.clamp(e / threshold, min=0.5), torch.zeros_like(e))
@@ -164,6 +196,9 @@ def ransac_fit(src, dst, mask, threshold: float = 5.5, model: str = "projective"
         "num_inliers": n_final * success,
         "num_putative": n_valid,
         "success": success,
+        "raw_cost": c_best,
+        "raw_H": H0,
+        "raw_inliers": inl0,
     }
 
 
@@ -172,19 +207,25 @@ def verify_pairs(pair_src, pair_dst, pair_mask, threshold: float = 5.5,
                  accept_alpha: float = 8.0, accept_beta: float = 0.3,
                  accept_small_min: float | None = None, accept_small_ratio: float = 0.9,
                  total: int | None = None, adaptive_first: int | None = None,
-                 generator: torch.Generator | None = None, minimal_sets=None,
-                 device=None):
+                 confidence: float = 99.9, generator: torch.Generator | None = None,
+                 minimal_sets=None, device=None):
     """Verify P candidate pairs: batched RANSAC + Brown-Lowe acceptance
     `ni > alpha + beta nf`, OR-ed with the small-sample branch
     `ni >= max(small_min, min_pts + 5) and ni >= small_ratio nf`.
 
-    pair_src/pair_dst (P, M, 2), pair_mask (P, M) numpy arrays.
-    Pairs run in groups of at most `_MAX_ELEMS` / (hypotheses x M) to bound
-    the (pairs, hypotheses, matches) error tensor. Returns numpy arrays
-    H, H_inv, inliers, num_inliers, num_putative, accepted."""
-    if adaptive_first is not None:
-        raise NotImplementedError("the adaptive two-phase RANSAC budget is not ported yet "
-                                  "(ROADMAP A11)")
+    Adaptive two-phase budget (`adaptive_first` = F < total): phase A
+    spends F hypotheses on every pair; `num_trials_observed` at each pair's
+    inlier ratio decides which pairs need more, and only those run phase B,
+    the remaining total - F hypotheses in sub-batches of F, starting from
+    phase A's pre-refit best. `verify_pairs.last_stats` records the split
+    as the reference does.
+
+    pair_src/pair_dst (P, M, 2), pair_mask (P, M) numpy arrays;
+    `minimal_sets` (P, nsub, sub, p) as `ransac_fit` takes them (adaptive:
+    [:, :1] for phase A, [continued, 1:] for phase B). Pairs run in groups
+    of at most `_MAX_ELEMS` / (hypotheses x M) to bound the (pairs,
+    hypotheses, matches) error tensor. Returns numpy arrays H, H_inv,
+    inliers, num_inliers, num_putative, accepted."""
     min_pts = model_min_pts(model)
     P, M = np.shape(pair_mask)
     if P == 0:
@@ -201,16 +242,48 @@ def verify_pairs(pair_src, pair_dst, pair_mask, threshold: float = 5.5,
     src = torch.as_tensor(np.asarray(pair_src, np.float32), device=device)
     dst = torch.as_tensor(np.asarray(pair_dst, np.float32), device=device)
     msk = torch.as_tensor(np.asarray(pair_mask, bool), device=device)
-    step = max(1, _MAX_ELEMS // (min(batch, total) * M))
-    outs = []
-    for s in range(0, P, step):
-        e = min(P, s + step)
-        outs.append(ransac_fit(
-            src[s:e], dst[s:e], msk[s:e], threshold=threshold, model=model, method=method,
-            batch=batch, total=total, generator=generator,
-            minimal_sets=None if minimal_sets is None else minimal_sets[s:e],
-        ))
-    res = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+    def run(sel, sub, tot, sets, init=None):
+        """ransac_fit over the pairs `sel` (an index array or None = all) in
+        memory-bounded groups."""
+        s_, d_, m_ = (x if sel is None else x[sel] for x in (src, dst, msk))
+        n = m_.shape[0]
+        step = max(1, _MAX_ELEMS // (sub * M))
+        outs = []
+        for s in range(0, n, step):
+            e = min(n, s + step)
+            outs.append(ransac_fit(
+                s_[s:e], d_[s:e], m_[s:e], threshold=threshold, model=model, method=method,
+                batch=sub, total=tot, generator=generator,
+                minimal_sets=None if sets is None else sets[s:e],
+                init=None if init is None else tuple(x[s:e] for x in init),
+            ))
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+    if not (adaptive_first is not None and 0 < adaptive_first < total):
+        verify_pairs.last_stats = {
+            "n_pairs": int(P), "total": int(total), "first": int(total), "n_continued": 0,
+            "m_matches": int(M), "trials_spent": float(P * total),
+        }
+        res = run(None, min(batch, total), total, minimal_sets)
+    else:
+        first = int(adaptive_first)
+        res = run(None, first, first, None if minimal_sets is None else minimal_sets[:, :1])
+        ni = res["num_inliers"].cpu().numpy()
+        w = ni / np.maximum(res["num_putative"].cpu().numpy(), 1)
+        cont = np.nonzero(num_trials_observed(confidence, model, w, total) > first)[0]
+        verify_pairs.last_stats = {
+            "n_pairs": int(P), "total": int(total), "first": first,
+            "n_continued": int(len(cont)), "m_matches": int(M),
+            "trials_spent": float(P * first + len(cont) * (total - first)),
+        }
+        if len(cont):
+            ci = torch.as_tensor(cont, device=src.device)
+            out_b = run(ci, first, total - first,
+                        None if minimal_sets is None else minimal_sets[torch.as_tensor(cont), 1:],
+                        init=(res["raw_cost"][ci], res["raw_H"][ci], res["raw_inliers"][ci]))
+            for k in res:
+                res[k][ci] = out_b[k]
     ni = res["num_inliers"].float()
     nf = res["num_putative"].float()
     accepted = res["success"] & (

@@ -12,13 +12,19 @@ Phases, each printing its own lines:
   3. B1 (pooled exact k-NN) against its plain version at the slice's shapes;
   3b. B1's pair-list mode against its plain version at the pairwise
      rescue's shape (25 images x 2048 slots, all 300 pairs, both ways);
+  3c. B1 on {0,1} descriptors (the corner detectors' 256 bits): pooled
+     k = 4 at F = 12 x 2048 and the pair list of 66 pairs x 2048 slots at
+     D = 256, and both at D = 160 on 6 images; indices and distances
+     identical to the plain version;
   4. B2's first port (the SIFT window gather alone, off the main path now)
      against its plain version, bit-exact;
   4b. B2 fused (`sift_window.cu`: the orientation histogram and the
      descriptor, reading windows straight from the stack) against its plain
      versions at the ring's octave-0 shape (a (20 x 7, 600, 800, 2) stack,
      40,960 keypoints, 40 and 80 px windows; TMA copies) and at an odd-W
-     coarse octave (32 px windows; cp.async copies): raw histograms within
+     coarse octave (32 px windows; cp.async copies) and at the DoH/KAZE
+     shape (a (8 x 8, 600, 800, 2) stack of full-resolution levels, 8 x
+     2048 keypoints, 80 px windows for both phases): raw histograms within
      1e-5 of each row's max, descriptors within 1e-4 (max) and 1e-6 (mean),
      a repeat launch bit-identical;
   Phases 3-4b time each kernel in turns with its plain version, its library
@@ -27,7 +33,8 @@ Phases, each printing its own lines:
   computes these functions, so the unfused path, B2's gather kernel and the
   PyTorch binning in 1,024-keypoint chunks, stands in) and, for B1, the
   bare `torch.mm` / `torch.bmm` of the same product, and print the kernel's
-  bound (operations for B1: 3xTF32 on the tensor cores; bytes for B2;
+  bound (operations for B1: 3xTF32 on the tensor cores, for {0,1}
+  descriptors one bf16 product, which is exact on them; bytes for B2;
   for 4b the larger of bytes, the stack pixels the windows cover, counted
   as their union level by level, and float32 + tensor-core operations) and
   its share of it;
@@ -43,8 +50,16 @@ Phases, each printing its own lines:
   7. a planar scan: a 3x3 grid of 800x600 crops with ~35 % overlap,
      `force_planar_scan` and the linear blend: one panorama of 9, the
      corner error of the homographies, PSNR against the texture sampled as
-     the renderer samples (`planar_metrics`).
-Phases 5-7 each count the kernels' launches from 0 and fail if a kernel of
+     the renderer samples (`planar_metrics`);
+  7b. the planar scan again with the translation and the affine model: one
+     panorama of 9, corner error < 1 px, PSNR at phase 7's gate;
+  8. the detectors: a 12-view 800x600 ring (f = 600 px) of a sharper
+     `synthdata.smooth_texture` (cutoff 0.2) stitched with ORB + MLESAC + the adaptive RANSAC budget, with SURF
+     and with KAZE, each held to the JAX package's result on the same scene
+     (JAX_PHASE8, from tools/jax_gates.py): the same panoramas, focal error
+     < 1 %, PSNR at least the JAX figure less 3 dB; ORB must launch B1 and
+     not B2, SURF and KAZE both.
+Phases 5-8 each count the kernels' launches from 0 and fail if a kernel of
 the path never launched. Then a JSON line of the kernels, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero without that line. This script imports nothing of JAX.
@@ -84,6 +99,27 @@ FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
 JAX_MULTIPANO_PSNR = 49.74  # lowest ring/projection PSNR of the JAX package, dB
 JAX_PLANAR_PSNR = 57.08
+# phase 8: the ring of 12 views (800x600, f = 600 px) stitched with other
+# detector and estimator options, each given as StitchConfig fields by
+# section (`phase8_config` builds it in either package)
+PHASE8 = {
+    "orb_mlesac_adaptive": {"detector": {"detector": "ORB"},
+                            "image_match": {"method": "mlesac", "adaptive_first_batch": 64}},
+    "surf": {"detector": {"detector": "SURF"}},
+    "kaze": {"detector": {"detector": "KAZE"}},
+}
+PHASE8_RING = (12, 600.0, 800, 600, (1024, 2048), 0.2)  # n, f, w, h, texture (h, w), cutoff
+# the JAX package's results on phase 8's scenes, on a CPU:
+#   python3 tools/jax_gates.py
+# panoramas (sorted member lists), max focal error %, spherical PSNR dB
+JAX_PHASE8 = {  # accepted / candidate pairs in the comments
+    "orb_mlesac_adaptive": {"panoramas": [list(range(12))], "focal_err": 0.0947367325425148,
+                            "psnr": 42.179099469406054},  # 15/30
+    "surf": {"panoramas": [list(range(12))], "focal_err": 0.0465494766831398,
+             "psnr": 47.56458037006152},  # 24/24
+    "kaze": {"panoramas": [list(range(12))], "focal_err": 0.02681477926671505,
+             "psnr": 47.63786152976782},  # 24/24
+}
 
 
 def log(msg: str) -> None:
@@ -130,15 +166,20 @@ def bound_ms(flop: float, nbytes: float, flop_rate: float = TF32_FLOPS):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def b1_record(label: str, flop: float, nbytes: float, err: float, bad: int, times: dict) -> dict:
+def b1_record(label: str, flop: float, nbytes: float, err: float, bad: int, times: dict,
+              binary: bool = False) -> dict:
     """Print B1's agreement, times, bound and share; return its record. The
-    product runs as 3xTF32 (3 tensor-core flop a float32 flop)."""
-    bound, by = bound_ms(3 * flop, nbytes)
+    product of float descriptors needs 3xTF32 (3 tensor-core flop a float32
+    flop). On {0,1} descriptors (`binary`) one product is enough, and it is
+    exact with bf16 operands and float32 sums, so the bound counts one pass
+    at the bf16 rate."""
+    ops, rate, unit = (flop, BF16_FLOPS, "bf16") if binary else (3 * flop, TF32_FLOPS, "3xTF32")
+    bound, by = bound_ms(ops, nbytes, rate)
     log(f"B1 {label}: max|dist diff|={err:.3e} idx mismatches outside ties={bad} "
         + " ".join(f"{k} {v:.3f} ms" for k, v in times.items())
-        + f" | bound {bound:.3f} ms ({by}: 3 x {flop:.3e} flop at {TF32_FLOPS / 1e12:.0f} TFLOP/s"
-        f" TF32, {nbytes / 1e6:.1f} MB), share {bound / times['kernel']:.1%}; float32 FMA bound "
-        f"{flop / FP32_FLOPS * 1e3:.3f} ms")
+        + f" | bound {bound:.3f} ms ({by}: {ops:.3e} flop at {rate / 1e12:.0f} TFLOP/s {unit},"
+        f" {nbytes / 1e6:.1f} MB), share {bound / times['kernel']:.1%}; one TF32 pass "
+        f"{flop / TF32_FLOPS * 1e3:.3f} ms, float32 FMA bound {flop / FP32_FLOPS * 1e3:.3f} ms")
     return dict(err=err, ms=times["kernel"], plain_ms=times["plain"], library_ms=times["library"],
                 mm_ms=times["mm"], bound_ms=bound, bound_by=by)
 
@@ -246,6 +287,62 @@ def phase_b1_pairs(dev, n_img: int, K: int):
                     2.0 * 2 * P * K * K * 128, nbytes, err, bad, times)
     if bad or not err <= 1e-4:
         raise AssertionError("B1 pair mode disagrees with its plain version")
+    return rec
+
+
+def phase_b1_wide(dev, n_img: int, K: int, narrow: int):
+    """B1 on {0,1} descriptors, the corner detectors' binary bits: pooled
+    k = 4 over n_img images of K rows and the pair list of all their pairs
+    at D = 256, and both modes at D = 160 (a width that is neither 128 nor
+    256) on `narrow` images. Every distance is an integer, so indices and
+    distances must EQUAL the plain version's. Returns records as
+    `b1_record` for the D = 256 pooled and pair-list runs."""
+    import torch
+
+    from autopanostitch_tpu_torch.kernels import knn as KN
+
+    rng = np.random.default_rng(2)
+    rec = {}
+    for D, n in ((256, n_img), (160, narrow)):
+        F = n * K
+        desc = torch.as_tensor((rng.random((F, D)) < 0.5).astype(np.float32), device=dev)
+        ids = np.repeat(np.arange(n, dtype=np.int32), K)
+        qid = torch.as_tensor(np.where(rng.random(F) < 0.1, -2, ids).astype(np.int32), device=dev)
+        valid = torch.as_tensor(rng.random((n, K)) > 0.1, device=dev)
+        pairs = torch.as_tensor(np.stack(np.triu_indices(n, 1), -1).astype(np.int32), device=dev)
+        slots = desc.reshape(n, K, D)
+        pooled_k, pooled_p = KN.knn(desc, qid, desc, qid, 4), KN.knn_plain(desc, qid, desc, qid, 4)
+        pair_k, pair_p = KN.knn_pairs(slots, valid, pairs, 2), KN.knn_pairs_plain(slots, valid, pairs, 2)
+        sync(dev)
+        for mode, got, ref in (("pooled", pooled_k, pooled_p), ("pairs", pair_k, pair_p)):
+            same_i, same_d = bool(torch.equal(got[0], ref[0])), bool(torch.equal(got[1], ref[1]))
+            log(f"B1 binary D={D} {mode}: indices identical={same_i} distances identical={same_d}")
+            if not (same_i and same_d):
+                raise AssertionError(f"B1 D={D} {mode} on binary descriptors differs from plain")
+        del pooled_k, pooled_p, pair_k, pair_p
+        if D != 256:
+            continue
+        P = pairs.shape[0]
+        pl = pairs.long()
+        qs = torch.cat([slots[pl[:, 0]], slots[pl[:, 1]]])
+        ts = torch.cat([slots[pl[:, 1]], slots[pl[:, 0]]])
+        runs = {
+            "pooled": (lambda: KN.knn(desc, qid, desc, qid, 4),
+                       lambda: library_knn(desc, desc, 4), lambda: torch.mm(desc, desc.T),
+                       lambda: KN.knn_plain(desc, qid, desc, qid, 4),
+                       2.0 * F * F * D, F * D * 4 + F * 4 + F * 4 * 8,
+                       f"binary pooled: F={F} ({n} x {K}) D={D} k=4"),
+            "pairs": (lambda: KN.knn_pairs(slots, valid, pairs, 2),
+                      lambda: library_knn(qs, ts, 2), lambda: torch.bmm(qs, ts.transpose(1, 2)),
+                      lambda: KN.knn_pairs_plain(slots, valid, pairs, 2),
+                      2.0 * 2 * P * K * K * D, n * K * (D * 4 + 1) + P * 8 + P * 2 * K * 2 * 8,
+                      f"binary pairs: {n} images x {K} slots, {P} pairs x 2 directions, D={D}"),
+        }
+        for mode, (kern, lib, mm, plain, flop, nbytes, label) in runs.items():
+            times = {"kernel": time_ms(kern, dev), "library": time_ms(lib, dev),
+                     "mm": time_ms(mm, dev), "plain": time_ms(plain, dev, reps=3)}
+            rec[mode] = b1_record(label, flop, nbytes, 0.0, 0, times, binary=True)
+        del qs, ts
     return rec
 
 
@@ -397,8 +494,8 @@ def phase_b2_fused(dev, cases):
                                      f"or is not deterministic")
             if name in recs:
                 recs[name]["err"] = max(recs[name]["err"], err)
-                recs[name][label] = dict(ms=ms, unfused_ms=unfused_ms, plain_ms=plain_ms,
-                                         bound_ms=bound, copy=route)
+                recs[name][label] = dict(err=err, ms=ms, unfused_ms=unfused_ms, plain_ms=plain_ms,
+                                         bound_ms=bound, bound_by=by, K=K, win=win, copy=route)
             else:
                 recs[name] = dict(err=err, ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
                                   library_ms=None, bound_ms=bound, bound_by=by, K=K, win=win,
@@ -407,12 +504,26 @@ def phase_b2_fused(dev, cases):
     return recs
 
 
-def ring_scene(n: int, f: float, w: int, h: int, env_hw):
+def phase8_config(config, name: str):
+    """The StitchConfig of phase 8's option set `name`, from a config module
+    (the port's, or the JAX package's for its gates)."""
+    import dataclasses
+
+    base = config.StitchConfig()
+    return base.replace(**{sec: dataclasses.replace(getattr(base, sec), **fields)
+                           for sec, fields in PHASE8[name].items()})
+
+
+def ring_scene(n: int, f: float, w: int, h: int, env_hw, cutoff: float = 0.08):
+    """n views of a 360-degree yaw ring of `synthdata.smooth_texture(7,
+    *env_hw, cutoff)`. Phase 8 takes cutoff 0.2: at the default 0.08 FAST
+    finds no corner, and on the blocky `synthdata.texture` BRIEF's matches
+    are mostly wrong. Returns (ImageSet, env, true R)."""
     import synthdata
 
     from autopanostitch_tpu_torch.api import ImageSet
 
-    env = synthdata.smooth_texture(7, *env_hw)
+    env = synthdata.smooth_texture(7, *env_hw, cutoff=cutoff)
     views, Rs = [], []
     for i in range(n):
         R = synthdata.rot_y(i * 2 * np.pi / n).T
@@ -733,28 +844,100 @@ def phase_planar(dev, w: int, h: int, psnr_min: float):
     return counts
 
 
+def phase_planar_models(dev, w: int, h: int, psnr_min: float):
+    """Phase 7b: the 3x3 planar scan is a pure translation, so the
+    translation and the affine model must stitch it as the projective one
+    does (one panorama of 9, corner error < 1 px, PSNR at phase 7's gate)."""
+    from autopanostitch_tpu_torch.api import BlendConfig, StitchConfig, StraightenConfig
+
+    iset, env, offs = planar_scene(w, h, 0.35)
+    out = []
+    import dataclasses
+
+    for model in ("translation", "affine"):
+        cfg = StitchConfig(straighten=StraightenConfig(force_planar_scan=True),
+                           blend=BlendConfig(mode="linear"))
+        cfg = cfg.replace(image_match=dataclasses.replace(cfg.image_match,
+                                                          transformation_type=model))
+        res, counts = run_stitch(f"planar_{model}", iset, cfg, dev)
+        if len(res.panoramas) != 1 or len(res.panoramas[0]["members"]) != 9:
+            raise AssertionError(f"{model}: expected one planar panorama of 9, got components "
+                                 f"{res.components}")
+        err, psnr, _ = planar_metrics(res.panoramas[0], env, offs, w, h)
+        log(f"planar_{model}: 1 panorama of 9, accepted pairs "
+            f"{int(np.asarray(res.graph.accepted).sum())}/{len(res.graph.pairs)}, max corner error "
+            f"{err:.4f} px, PSNR {psnr:.3f} dB (gate {psnr_min:.2f})")
+        if not (err < 1.0 and psnr >= psnr_min):
+            raise AssertionError(f"planar {model}: corner error {err:.3f} px or PSNR {psnr:.2f} dB")
+        require_launches(f"planar_{model}", counts, ("knn", "orient_hist", "descriptor"), dev)
+        out.append(counts)
+    return out
+
+
+def phase_detectors(dev, n: int, f_true: float, w: int, h: int, env_hw, cutoff: float, gates):
+    """Phase 8: the ring stitched three times, with ORB + MLESAC + the
+    adaptive RANSAC budget, with SURF and with KAZE. `gates` (None in the
+    rehearsal) holds the JAX package's panoramas, focal errors and PSNRs
+    (JAX_PHASE8): the same panoramas, focal error < 1 % and PSNR at least
+    the JAX figure less 3 dB. ORB launches B1 and not B2; SURF and KAZE
+    launch both. Returns {name: counts}."""
+    from autopanostitch_tpu_torch import config
+    from autopanostitch_tpu_torch.ops import ransac
+
+    iset, env, Rs = ring_scene(n, f_true, w, h, env_hw, cutoff)
+    out = {}
+    for name in PHASE8:
+        res, counts = run_stitch(name, iset, phase8_config(config, name), dev)
+        if name.startswith("orb"):
+            log(f"{name}: verify_pairs.last_stats {json.dumps(ransac.verify_pairs.last_stats)}")
+        panos = sorted(sorted(np.asarray(p["members"]).tolist()) for p in res.panoramas)
+        full = [p for p in res.panoramas if len(p["members"]) == n]
+        psnr, ferr = pano_psnr(full[0], env, Rs, f_true) if full else (float("nan"),) * 2
+        log(f"{name}: panoramas {panos}, accepted pairs {int(np.asarray(res.graph.accepted).sum())}"
+            f"/{len(res.graph.pairs)}, max focal error {ferr:.4f} %, PSNR {psnr:.3f} dB"
+            + (f" (JAX on a CPU: {json.dumps(gates[name])})" if gates else ""))
+        want = gates[name]["panoramas"] if gates else [list(range(n))]
+        psnr_min = gates[name]["psnr"] - 3.0 if gates else 35.0
+        if panos != want:
+            raise AssertionError(f"{name}: panoramas {panos}, expected {want}")
+        if not (ferr < 1.0 and psnr >= psnr_min):
+            raise AssertionError(f"{name}: focal error {ferr:.3f} % or PSNR {psnr:.2f} dB "
+                                 f"(gate {psnr_min:.2f})")
+        runs_b2 = not name.startswith("orb")  # binary descriptors: no window phase
+        if dev.type == "cuda" and not (counts["knn"] > 0 and all(
+                (counts[k] > 0) == runs_b2 for k in ("orient_hist", "descriptor"))):
+            raise AssertionError(f"{name}: unexpected kernel launches {counts}")
+        out[name] = counts
+    return out
+
+
 def main() -> int:
     import torch
 
     if REHEARSE:
         dev = torch.device("cpu")
-        sizes = dict(F=2048, n_img=4, pairs=(6, 256), b2=(2, 8, 96, 128),
+        sizes = dict(F=2048, n_img=4, pairs=(6, 256), b1w=(4, 256, 3), b2=(2, 8, 96, 128),
                      b2f=[("octave0", 2 * 7, 96, 128, 64, 40, 80),
-                          ("odd_w_coarse", 2 * 7, 38, 51, 16, 32, 32)],
+                          ("odd_w_coarse", 2 * 7, 38, 51, 16, 32, 32),
+                          ("doh", 2 * 8, 96, 128, 2 * 64, 80, 80)],
                      ring=(12, 240.0, 320, 240, (512, 1024)),
-                     multi=(10, 240.0, 320, 240, (512, 1024), 200, 35.0), planar=(320, 240, 40.0))
+                     multi=(10, 240.0, 320, 240, (512, 1024), 200, 35.0), planar=(320, 240, 40.0),
+                     detectors=(8, 240.0, 320, 240, (512, 1024), 0.2, None))
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA GPU",
                   file=sys.stderr)
             return 1
         dev = torch.device("cuda", 0)
-        sizes = dict(F=20 * 2048, n_img=20, pairs=(25, 2048), b2=(20, 8, 600, 800),
+        sizes = dict(F=20 * 2048, n_img=20, pairs=(25, 2048), b1w=(12, 2048, 6),
+                     b2=(20, 8, 600, 800),
                      b2f=[("octave0", 20 * 7, 600, 800, 20 * 2048, 40, 80),
-                          ("odd_w_coarse", 20 * 7, 38, 51, 20 * 128, 32, 32)],
+                          ("odd_w_coarse", 20 * 7, 38, 51, 20 * 128, 32, 32),
+                          ("doh", 8 * 8, 600, 800, 8 * 2048, 80, 80)],
                      ring=(20, 600.0, 800, 600, (1024, 2048)),
                      multi=(12, 600.0, 800, 600, (1024, 2048), 400, JAX_MULTIPANO_PSNR - 3.0),
-                     planar=(800, 600, JAX_PLANAR_PSNR - 3.0))
+                     planar=(800, 600, JAX_PLANAR_PSNR - 3.0),
+                     detectors=PHASE8_RING + (JAX_PHASE8,))
 
     import autopanostitch_tpu_torch  # noqa: F401  (fails outside the repo)
     from autopanostitch_tpu_torch.kernels import _build
@@ -785,11 +968,17 @@ def main() -> int:
 
     b1 = phase_b1(dev, sizes["F"], sizes["n_img"])
     b1p = phase_b1_pairs(dev, *sizes["pairs"])
+    b1w = phase_b1_wide(dev, *sizes["b1w"])
     b2 = phase_b2(dev, *sizes["b2"])
     b2f = phase_b2_fused(dev, sizes["b2f"])
     runs = [phase_slice(dev, *sizes["ring"]), phase_multipano(dev, *sizes["multi"]),
             phase_planar(dev, *sizes["planar"])]
+    runs += phase_planar_models(dev, *sizes["planar"])
+    det = phase_detectors(dev, *sizes["detectors"])
+    runs += list(det.values())
     counts = {k: sum(c[k] for c in runs) for k in runs[0]}
+    orb = det["orb_mlesac_adaptive"]
+    doh_runs = [det["surf"], det["kaze"]]
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -824,6 +1013,25 @@ def main() -> int:
                        "at 67 TFLOP/s"
                        + (" plus 2 x 16 x 8 bf16 tensor-core flops a pixel at 989 TFLOP/s"
                           if name == "descriptor" else "")}
+        for name in ("orient_hist", "descriptor")
+    ] + [
+        {"name": f"{mode}_knn_binary256", "route": "cuda",
+         "source": "autopanostitch_tpu_torch/csrc/knn_wide.cu",
+         "replaces": "autopanostitch_tpu/ops/pallas/match_kernel.py:129",
+         "launches": orb["knn" if mode == "pooled" else "knn_pairs"], "max_abs_err": 0.0,
+         **{k: b1w[mode][k] for k in keys}, "mm_ms": b1w[mode]["mm_ms"],
+         "bound_unit": "one tensor-core product (2 Fq Ft D flop) at 989 TFLOP/s bf16: exact on "
+                       "{0,1} descriptors",
+         "launches_note": "phase 8's ORB stitch (D = 256); indices and distances identical to "
+                          "the plain version at D = 256 and 160"}
+        for mode in ("pooled", "pairs")
+    ] + [
+        {"name": f"{name}_doh", "route": "cuda", "source": "autopanostitch_tpu_torch/csrc/sift_window.cu",
+         "replaces": "autopanostitch_tpu/ops/pallas/window_gather.py:78",
+         "launches": sum(r[name] for r in doh_runs), "max_abs_err": b2f[name]["doh"]["err"],
+         **{k: b2f[name]["doh"][k] for k in keys + ("unfused_ms", "K", "win", "copy")
+            if k != "library_ms"}, "library_ms": None,
+         "launches_note": "phase 8's SURF and KAZE stitches"}
         for name in ("orient_hist", "descriptor")
     ]}
     if REHEARSE:

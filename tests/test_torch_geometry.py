@@ -163,3 +163,87 @@ def test_other_projections_raise():
         tproj.pano_to_ray("fisheye", torch.zeros(2), torch.zeros(2), 1.0, 0.0, 0.0)
     with pytest.raises(ValueError, match="projection"):
         tproj.ray_to_pano("fisheye", torch.zeros(2, 3))
+
+
+_FITS = ["affine", "similarity", "rigid", "translation"]
+_MIN_PTS = {"affine": 3, "similarity": 2, "rigid": 2, "translation": 1}
+
+
+def _affine_matches(rng, shape, noise=0.4):
+    """(..., M, 2) src/dst of a random affine map with noise and 30 % outliers."""
+    src = rng.uniform(0, 300, shape + (2,)).astype(np.float32)
+    A = np.eye(2) + 0.1 * rng.standard_normal((2, 2))
+    dst = src @ A.T.astype(np.float32) + rng.uniform(-60, 60, 2).astype(np.float32)
+    dst = dst + noise * rng.standard_normal(dst.shape).astype(np.float32)
+    bad = rng.random(shape) < 0.3
+    dst[bad] = rng.uniform(0, 300, (int(bad.sum()), 2))
+    return src, dst.astype(np.float32)
+
+
+def _jax_fit(name, src, dst, w):
+    """The JAX fit mapped over every leading axis."""
+    import jax
+
+    fn = getattr(jgeo, f"fit_{name}")
+    for _ in range(src.ndim - 2):
+        fn = jax.vmap(fn)
+    return np.asarray(fn(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(w)))
+
+
+@pytest.mark.parametrize("name", _FITS)
+def test_non_projective_fits_match_jax(name):
+    """Batched over leading axes: (P, B, p, 2) minimal sets with unit
+    weights and (P, M, 2) weighted refits (0/1 and IRLS-like weights).
+    Within 1e-5 of H's largest entry; translation exactly."""
+    rng = np.random.default_rng(40 + _FITS.index(name))
+    fn = getattr(tgeo, f"fit_{name}")
+    p = _MIN_PTS[name]
+    src_m, dst_m = _affine_matches(rng, (3, 16, p), noise=0.0)
+    src_r, dst_r = _affine_matches(rng, (5, 60))
+    w01 = (rng.random((5, 60)) < 0.7).astype(np.float32)
+    w_irls = np.where(w01 > 0, 1.0 / np.maximum(rng.uniform(0, 1, (5, 60)), 0.5), 0.0)
+    cases = [(src_m, dst_m, np.ones((3, 16, p), np.float32)), (src_r, dst_r, w01),
+             (src_r, dst_r, w_irls.astype(np.float32))]
+    for src, dst, w in cases:
+        ref = _jax_fit(name, src, dst, w)
+        got = fn(_t(src), _t(dst), _t(w)).numpy()
+        assert got.shape == ref.shape
+        if name == "translation":
+            np.testing.assert_array_equal(got, ref)
+        else:
+            scale = np.abs(ref).max(axis=(-2, -1), keepdims=True)
+            assert (np.abs(got - ref) <= 1e-5 * scale).all(), np.abs(got - ref).max()
+
+
+def test_weighted_median_ties_and_zero_weights():
+    """Stable sort + left-side search: equal values keep their order, zero
+    weights are skipped, uniform weights give the lower median."""
+    vals = np.array([[3.0, 1.0, 2.0, 2.0, 5.0, 4.0], [1.0, 1.0, 1.0, 0.0, 9.0, 9.0]], np.float32)
+    w = np.array([[1, 1, 1, 1, 1, 1], [0, 0, 1, 1, 1, 0]], np.float32)
+    ref = np.asarray(jnp.stack([jgeo._weighted_median(jnp.asarray(v), jnp.asarray(x))
+                                for v, x in zip(vals, w)]))
+    got = tgeo._weighted_median(_t(vals), _t(w)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, [2.0, 1.0])
+
+
+def test_singular_affine_system_stays_nonfinite_without_raising():
+    """Coincident points make the 2x2 system singular up to its 1e-8 ridge:
+    the fit returns what the solve gives and the validity check rejects it."""
+    src = np.zeros((1, 3, 2), np.float32)
+    dst = np.ones((1, 3, 2), np.float32)
+    H = tgeo.fit_affine(_t(src), _t(dst), torch.ones(1, 3))
+    ref = _jax_fit("affine", src, dst, np.ones((1, 3), np.float32))
+    np.testing.assert_allclose(H.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_solve2x2_is_bit_exact_with_jnp_solve():
+    """The affine fit's 2x2 solve rounds as `jnp.linalg.solve` does on the
+    CPU, pivoting included, on systems across eight decades of scale."""
+    import jax
+
+    rng = np.random.default_rng(9)
+    A = (rng.standard_normal((4000, 2, 2)) * rng.uniform(0.1, 1e4, (4000, 1, 1))).astype(np.float32)
+    B = (100 * rng.standard_normal((4000, 2, 2))).astype(np.float32)
+    ref = np.asarray(jax.vmap(jnp.linalg.solve)(jnp.asarray(A), jnp.asarray(B)))
+    np.testing.assert_array_equal(tgeo.solve2x2(_t(A), _t(B)).numpy(), ref)

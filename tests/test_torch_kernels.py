@@ -167,12 +167,21 @@ def test_wrappers_reject_bad_inputs():
         twg.gather_windows(src, i[:2].long(), i[:2], i[:2], 4, 4)
 
 
+def test_width_check_takes_multiples_of_32_up_to_256():
+    for D in (32, 128, 160, 256):
+        tknn.check_width(D)
+    for D in (0, 100, 288, 512):
+        with pytest.raises(ValueError, match="256"):
+            tknn.check_width(D)
+
+
 def test_library_is_named_by_source_hash():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libapst_kernels_")
     assert p == _build.library_path()
-    assert {s.name for s in _build.CSRC.glob("*.cu")} == {"knn.cu", "sift_window.cu",
-                                                           "window_gather.cu"}
+    assert {s.name for s in _build.CSRC.glob("*.cu")} == {"knn.cu", "knn_wide.cu",
+                                                           "sift_window.cu", "window_gather.cu"}
+    assert "knn.cuh" in {s.name for s in _build._sources()}
 
 
 @pytest.mark.cuda
@@ -345,7 +354,7 @@ def test_knn_kernel_every_k_on_card(k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [32, 64, 96, 128])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 160, 192, 224, 256])
 def test_knn_kernel_descriptor_widths_on_card(D):
     dev = _cuda()
     _run_knn_case(_knn_case(20 + D, 777, 1234, D), 4, dev)
@@ -422,3 +431,46 @@ def test_knn_kernel_exact_duplicates_on_card():
     idx, dist = tknn.knn(desc, ids, desc, ids, 2)
     assert torch.equal(idx[:1000, 0], torch.arange(2000, 3000, dtype=torch.int32, device=dev))
     assert float(dist[:1000, 0].abs().max()) == 0.0
+
+
+def _bits(rng, shape, p=0.5):
+    return (rng.random(shape) < p).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [256, 160])
+def test_knn_kernel_binary_descriptors_on_card(D):
+    """{0,1} descriptors (the corner detectors' 256 bits, and 160, a width
+    that is neither 128 nor 256): every distance is an integer and ties are
+    the common case, so indices AND distances equal the plain version's,
+    same-image, invalid and self masks included."""
+    dev = _cuda()
+    rng = np.random.default_rng(30 + D)
+    d = torch.as_tensor(_bits(rng, (3000, D)), device=dev)
+    ids = np.repeat(np.arange(5, dtype=np.int32), 600)
+    qid = torch.as_tensor(np.where(rng.random(3000) < 0.1, -2, ids).astype(np.int32), device=dev)
+    for k in (4, 2, 8):
+        idx_k, d_k = tknn.knn(d, qid, d, qid, k)
+        idx_p, d_p = tknn.knn_plain(d, qid, d, qid, k)
+        assert torch.equal(d_k, d_p) and torch.equal(idx_k, idx_p), k
+    idq = torch.as_tensor(ids, device=dev)
+    self_idx = torch.arange(3000, dtype=torch.int32, device=dev)
+    idx_k, d_k = tknn.knn(d, idq, d, idq, 2, self_idx)
+    idx_p, d_p = tknn.knn_plain(d, idq, d, idq, 2, self_idx)
+    assert torch.equal(d_k, d_p) and torch.equal(idx_k, idx_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [256, 160])
+def test_knn_pairs_kernel_binary_descriptors_on_card(D):
+    """Pair-list mode on {0,1} descriptors with a ragged slot count (300):
+    bit-equal to the plain version, k = 1 and 2."""
+    dev = _cuda()
+    rng = np.random.default_rng(40 + D)
+    desc = torch.as_tensor(_bits(rng, (6, 300, D)), device=dev)
+    val = torch.as_tensor(rng.random((6, 300)) > 0.1, device=dev)
+    pairs = torch.as_tensor(np.stack(np.triu_indices(6, 1), -1).astype(np.int32), device=dev)
+    for k in (1, 2):
+        idx_k, d_k = tknn.knn_pairs(desc, val, pairs, k)
+        idx_p, d_p = tknn.knn_pairs_plain(desc, val, pairs, k)
+        assert torch.equal(d_k, d_p) and torch.equal(idx_k, idx_p), k

@@ -125,8 +125,14 @@ def test_extract_features_with_upsample_level_parity():
 
 
 def test_other_detectors_raise():
+    """The other detectors are ported (tests/test_torch_detectors.py holds
+    them against the JAX package): none raises, the corner detectors give
+    256-bit {0,1} descriptors, SURF and KAZE d * d * nbins floats."""
     rgb, _ = _gray_views(1, size=(64, 64))
-    with pytest.raises(NotImplementedError, match="A11"):
-        tfeat.extract_features(torch.as_tensor(rgb), np.array([[64, 64]]),
-                               DetectorConfig(detector="ORB"))
+    for det, width in (("ORB", 256), ("FAST", 256), ("SURF", 128), ("KAZE", 128)):
+        f = tfeat.extract_features(torch.as_tensor(rgb), np.array([[64, 64]]),
+                                   DetectorConfig(detector=det, max_keypoints=64))
+        assert f.desc.shape == (1, 64, width)
+        if width == 256:
+            assert set(np.unique(f.desc.numpy())) <= {0.0, 1.0}
 
