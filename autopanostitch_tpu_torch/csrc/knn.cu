@@ -79,8 +79,13 @@
 //   element in registers once anyway, and no tensor map is built on the
 //   host.
 // - Epilogue in registers: x = qn + tn - 2 acc; each thread keeps a sorted
-//   top-k for each of its 2 query rows (k <= 8 is a template parameter, so
-//   the lists stay in registers). A thread sees its targets in ascending
+//   top-K for each of its 2 query rows (K is a template parameter, so the
+//   lists stay in registers). The instances are K = 2, 4, 8 and 16 pooled
+//   and K = 2 for the pair list; the wrapper takes the smallest K >= k and
+//   keeps the first k columns, exact under the strict (distance, index)
+//   order. The 3xTF32 K = 16 instance holds 64 columns of a warp's queries
+//   at a time (its 64 list registers would not fit beside 128 columns of
+//   hi/lo fragments), in chunks as the wide widths below. A thread sees its targets in ascending
 //   index order, so one compare against its list's tail decides, without
 //   branches, whether any candidate of the tile could enter; the masks and
 //   the insertion run only for warps where one could. An invalid query
@@ -107,6 +112,16 @@
 //   exact (lo = 0) and every distance an integer, so ties keep the exact
 //   (distance, index) order of the plain version. Those instances are
 //   built in knn_wide.cu; the tile loop is in knn.cuh.
+// - The bf16 instances (knn_bf16.cu, `compute_dtype="bfloat16"`, where the
+//   reference rounds both operands of q.t to bf16 and sums in float32):
+//   each operand rounded once (no hi/lo split), one wgmma.m64n64k16 bf16 a
+//   k-step, the expansion-form distance from float32 norms, clamped at 0,
+//   and no refine (direct float32 differences would give the float32
+//   answer, which the reference's bf16 run does not). A 128-byte swizzled
+//   row holds 64 bf16 where it holds 32 floats: each thread rounds the raw
+//   float32 chunks it copied into the stage's second part, laid out as
+//   rows of 64 bf16, so the descriptors step 32 bytes a k-step as for TF32.
+//   One product a k-step where 3xTF32 takes three, at twice TF32's rate.
 
 #include "knn.cuh"
 
@@ -156,8 +171,8 @@ struct PairRows {
 // The k winners of each row, their distances recomputed in float32 as
 // sum (q - t)^2 and re-sorted by (distance, index); masked entries (BIG)
 // stay as they are. One warp a row, rows strided over the grid.
-template <class Rows>
-__global__ void refine(const Rows rows, long long n_rows, int D, int k, int* __restrict__ idx,
+template <int K, class Rows>
+__global__ void refine(const Rows rows, long long n_rows, int D, int* __restrict__ idx,
                        float* __restrict__ dist) {
   const int lane = threadIdx.x % 32;
   const long long step = (long long)gridDim.x * (blockDim.x / 32);
@@ -167,13 +182,12 @@ __global__ void refine(const Rows rows, long long n_rows, int D, int k, int* __r
     float qv[DMAX / 32];
 #pragma unroll
     for (int u = 0; u < DMAX / 32; ++u) qv[u] = lane + 32 * u < D ? qr[lane + 32 * u] : 0.f;
-    float bd[8];
-    int bi[8];
+    float bd[K];
+    int bi[K];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (j >= k) break;
-      bd[j] = dist[r * k + j];
-      bi[j] = idx[r * k + j];
+    for (int j = 0; j < K; ++j) {
+      bd[j] = dist[r * K + j];
+      bi[j] = idx[r * K + j];
       if (!(bd[j] < BIG)) continue;  // the same on every lane
       const float* tr = rows.target(r, bi[j]);
       float s = 0.f;
@@ -190,10 +204,10 @@ __global__ void refine(const Rows rows, long long n_rows, int D, int k, int* __r
     }
     if (lane != 0) continue;
 #pragma unroll
-    for (int pass = 1; pass < 8; ++pass)  // bubble sort, static indices (registers)
+    for (int pass = 1; pass < K; ++pass)  // bubble sort, static indices (registers)
 #pragma unroll
-      for (int j = 0; j + 1 < 8; ++j)
-        if (j + 1 < k && better(bd[j + 1], bi[j + 1], bd[j], bi[j])) {
+      for (int j = 0; j + 1 < K; ++j)
+        if (better(bd[j + 1], bi[j + 1], bd[j], bi[j])) {
           const float d = bd[j];
           const int i = bi[j];
           bd[j] = bd[j + 1];
@@ -202,33 +216,38 @@ __global__ void refine(const Rows rows, long long n_rows, int D, int k, int* __r
           bi[j + 1] = i;
         }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (j >= k) break;
-      dist[r * k + j] = bd[j];
-      idx[r * k + j] = bi[j];
+    for (int j = 0; j < K; ++j) {
+      dist[r * K + j] = bd[j];
+      idx[r * K + j] = bi[j];
     }
   }
 }
 
+// refine<K> for the instance's K (2, 4, 8 or KMAX).
 template <class Rows>
 cudaError_t launch_refine(const Rows& rows, long long n_rows, int D, int k, int* idx,
                           float* dist, cudaStream_t s) {
   const long long blocks = (n_rows + 7) / 8;
-  refine<<<(unsigned)(blocks < (1 << 20) ? blocks : (1 << 20)), 256, 0, s>>>(rows, n_rows, D, k,
-                                                                            idx, dist);
+  const unsigned grid = (unsigned)(blocks < (1 << 20) ? blocks : (1 << 20));
+  switch (k) {
+    case 2: refine<2><<<grid, 256, 0, s>>>(rows, n_rows, D, idx, dist); break;
+    case 4: refine<4><<<grid, 256, 0, s>>>(rows, n_rows, D, idx, dist); break;
+    case 8: refine<8><<<grid, 256, 0, s>>>(rows, n_rows, D, idx, dist); break;
+    default: refine<KMAX><<<grid, 256, 0, s>>>(rows, n_rows, D, idx, dist);
+  }
   return cudaGetLastError();
 }
 
-// The kernel of the runtime width D (a multiple of 32, <= DMAX).
-template <int K, class... Rest>
-cudaError_t launch_d(int D, const Rest&... rest) {
-  switch (D) {
-    case 32: return launch<K, 32>(rest...);
-    case 64: return launch<K, 64>(rest...);
-    case 96: return launch<K, 96>(rest...);
-    case 128: return launch<K, 128>(rest...);
-    default: return launch_wide(K, D, rest...);
-  }
+// The instance of (K, D, operand type): 3xTF32 up to DCHUNK here, above it
+// in knn_wide.cu, bf16 in knn_bf16.cu.
+template <class Args, class... Rest>
+cudaError_t launch_any(bool bf16, int K, int D, const Args& a, const Rest&... rest) {
+  if (bf16) return launch_bf16(K, D, a, rest...);
+  if (D > DCHUNK) return launch_wide(K, D, a, rest...);
+  if constexpr (sizeof...(Rest) == 1)
+    return launch_pooled<false, 32, 64, 96, 128>(K, D, a, rest...);
+  else
+    return launch_pairs<false, 32, 64, 96, 128>(K, D, a, rest...);
 }
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
@@ -238,45 +257,40 @@ bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0
 
 using namespace b1;
 
+// k is the instance's K (2, 4, 8 or 16): out (Fq, k). bf16 != 0 runs the
+// bf16-operand instance, whose expansion-form distances are the result
+// (no refine).
 extern "C" int apst_knn(const float* q, const int* qid, const int* qself, int Fq,
-                        const float* t, const int* tid, int Ft, int D, int k,
+                        const float* t, const int* tid, int Ft, int D, int k, int bf16,
                         float* qn, float* tn, int* out_idx, float* out_dist, void* stream) {
-  if (D % 32 != 0 || D > DMAX || k < 1 || k > 8 || Fq <= 0 || Ft <= 0)
+  if (D % 32 != 0 || D > DMAX || (k != 2 && k != 4 && k != 8 && k != KMAX) || Fq <= 0 ||
+      Ft <= 0)
     return (int)cudaErrorInvalidValue;
   if (misaligned(q) || misaligned(t)) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   row_norms<<<(Fq + 7) / 8, 256, 0, s>>>(q, Fq, D, qn);
   if (t != q) row_norms<<<(Ft + 7) / 8, 256, 0, s>>>(t, Ft, D, tn);
   const PooledArgs a{q, qid, qself, qn, Fq, t, tid, t != q ? tn : qn, Ft, out_idx, out_dist};
-  cudaError_t err;
-  switch (k) {
-    case 1: err = launch_d<1>(D, a, s); break;
-    case 2: err = launch_d<2>(D, a, s); break;
-    case 3: err = launch_d<3>(D, a, s); break;
-    case 4: err = launch_d<4>(D, a, s); break;
-    case 5: err = launch_d<5>(D, a, s); break;
-    case 6: err = launch_d<6>(D, a, s); break;
-    case 7: err = launch_d<7>(D, a, s); break;
-    default: err = launch_d<8>(D, a, s);
-  }
-  if (err != cudaSuccess) return (int)err;
+  const cudaError_t err = launch_any(bf16 != 0, k, D, a, s);
+  if (err != cudaSuccess || bf16) return (int)err;
   return (int)launch_refine(PooledRows{q, t, D}, Fq, D, k, out_idx, out_dist, s);
 }
 
 // desc (N * Kc, D) row-major, tag (N * Kc) with -2 = invalid slot, pairs
-// (P, 2) image indices < N; norms (N * Kc) scratch; out (P, 2, Kc, k).
+// (P, 2) image indices < N; norms (N * Kc) scratch; k = 2, out (P, 2, Kc,
+// k); bf16 as in apst_knn.
 extern "C" int apst_knn_pairs(const float* desc, const int* tag, int N, int Kc, int D,
-                              const int* pairs, int P, int k, float* norms, int* out_idx,
-                              float* out_dist, void* stream) {
-  if (D % 32 != 0 || D > DMAX || k < 1 || k > 2 || N <= 0 || Kc <= 0 || P <= 0 ||
+                              const int* pairs, int P, int k, int bf16, float* norms,
+                              int* out_idx, float* out_dist, void* stream) {
+  if (D % 32 != 0 || D > DMAX || k != 2 || N <= 0 || Kc <= 0 || P <= 0 ||
       2LL * P * ((Kc + BQ - 1) / BQ) > INT_MAX)
     return (int)cudaErrorInvalidValue;
   if (misaligned(desc)) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   row_norms<<<(N * Kc + 7) / 8, 256, 0, s>>>(desc, N * Kc, D, norms);
   const PairArgs a{desc, tag, norms, Kc, pairs, out_idx, out_dist};
-  const cudaError_t err = k == 1 ? launch_d<1>(D, a, P, s) : launch_d<2>(D, a, P, s);
-  if (err != cudaSuccess) return (int)err;
+  const cudaError_t err = launch_any(bf16 != 0, k, D, a, P, s);
+  if (err != cudaSuccess || bf16) return (int)err;
   return (int)launch_refine(PairRows{desc, pairs, Kc, D}, 2LL * P * Kc, D, k, out_idx, out_dist,
                             s);
 }

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain version.
 
 - `knn`: B1, exact k-NN (replaces `ops/pallas/match_kernel.py`), in a
-  pooled mode (`knn.knn`) and a pair-list mode (`knn.knn_pairs`).
+  pooled mode (`knn.knn`) and a pair-list mode (`knn.knn_pairs`), each with
+  a 3xTF32 and a bf16-operand instance.
 - `sift_window`: B2 fused with the SIFT phases that consume its windows:
   the orientation histogram (`sift_window.orient_hist`) and the descriptor
   (`sift_window.descriptor`), reading windows straight from the stack
@@ -13,7 +14,8 @@
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and uses the
 plain PyTorch version for CPU tensors only; each counts its launches in a
-module-level integer (`launches`, `pair_launches` for B1's pair mode,
+module-level integer (`launches`, `pair_launches` for B1's pair mode, and
+of those `bf16_launches` / `bf16_pair_launches` of its bf16 instance,
 `orient_launches` and `descriptor_launches` for the fused B2).
 """
 
@@ -23,6 +25,8 @@ from autopanostitch_tpu_torch.kernels import knn, sift_window, window_gather  # 
 def reset_launch_counts() -> None:
     knn.launches = 0
     knn.pair_launches = 0
+    knn.bf16_launches = 0
+    knn.bf16_pair_launches = 0
     window_gather.launches = 0
     sift_window.orient_launches = 0
     sift_window.descriptor_launches = 0
@@ -30,5 +34,6 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {"knn": knn.launches, "knn_pairs": knn.pair_launches,
+            "knn_bf16": knn.bf16_launches, "knn_pairs_bf16": knn.bf16_pair_launches,
             "window_gather": window_gather.launches, "orient_hist": sift_window.orient_launches,
             "descriptor": sift_window.descriptor_launches}

@@ -3,9 +3,9 @@
 Each `csrc/*.cu` compiles in its own `nvcc` process, all started together,
 and one more `nvcc` links the objects into a shared library with a plain C
 interface (no PyTorch headers: the build takes about a minute, most of it
-B1's template instances, split over `knn.cu` and `knn_wide.cu` so that two
-`nvcc`s share them, where a `torch.utils.cpp_extension` build of one small
-file took minutes). The library lands in
+B1's template instances, split over `knn.cu`, `knn_wide.cu` and
+`knn_bf16.cu` so that three `nvcc`s share them, where a
+`torch.utils.cpp_extension` build of one small file took minutes). The library lands in
 `autopanostitch_tpu_torch/_build/`, named by a hash of the sources and the
 flags, so a changed source rebuilds and an unchanged one loads at once.
 
@@ -98,9 +98,9 @@ def build() -> pathlib.Path:
 
 def _declare(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.apst_knn.argtypes = [P, P, P, I, P, P, I, I, I, P, P, P, P, P]
+    lib.apst_knn.argtypes = [P, P, P, I, P, P, I, I, I, I, P, P, P, P, P]
     lib.apst_knn.restype = I
-    lib.apst_knn_pairs.argtypes = [P, P, I, I, I, P, I, I, P, P, P, P]
+    lib.apst_knn_pairs.argtypes = [P, P, I, I, I, P, I, I, I, P, P, P, P]
     lib.apst_knn_pairs.restype = I
     lib.apst_gather_windows.argtypes = [P, I, I, I, P, P, P, I, I, I, P, P]
     lib.apst_gather_windows.restype = I

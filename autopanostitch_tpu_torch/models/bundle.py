@@ -567,6 +567,31 @@ def run_incremental_ba(R0, f_init, cx, cy, u_i, u_j, w, loc_pairs, order, seed: 
     return R, f, (k1 if with_k1 else None), cost
 
 
+def initialize_cameras_summary(pairs, Hs, counts, sizes, method: str = "shumSzeliskiOneHPaper"):
+    """Standalone camera initialization (the reference's
+    `initializeCameraMatrices.m` as one call): focal estimate, max spanning
+    tree, BFS rotation propagation, rotation-consistency classification.
+
+    Returns dict(f, R (N,3,3), seed, tree, no_rotation, consistency_deg).
+    """
+    n = len(sizes)
+    f0 = estimate_focal(pairs, Hs, sizes, method)
+    tree = max_spanning_tree(counts)
+    deg = np.bincount(np.asarray(pairs).reshape(-1), minlength=n) if len(pairs) else np.zeros(n, int)
+    seed = int(np.argmax(deg))
+    pair_H = {(int(i), int(j)): Hs[p] for p, (i, j) in enumerate(pairs)}
+    R0 = propagate_rotations(n, tree, pair_H, sizes, f0, seed)
+    no_rotation, mean_ae, med_ae, max_ae = rotation_consistency(pairs, Hs, sizes, R0, f0)
+    return {
+        "f": f0,
+        "R": R0,
+        "seed": seed,
+        "tree": tree,
+        "no_rotation": no_rotation,
+        "consistency_deg": (mean_ae, med_ae, max_ae),
+    }
+
+
 def run_bundle_adjustment(members, pairs, pair_idx, pair_mask, inliers, Hs, xy, counts,
                           sizes, cfg: BundleConfig = BundleConfig(),
                           force_planar: bool = False, device=None):

@@ -14,6 +14,8 @@ for externally produced panoramas (`mask_from_color`).
 
 from __future__ import annotations
 
+import subprocess
+
 import numpy as np
 
 
@@ -112,9 +114,17 @@ def largest_inscribed_rect(mask: np.ndarray):
     """Largest all-valid axis-aligned rectangle (reference
     `panoramaCropper.m:96-157`). Returns (r0, r1, c0, c1) or None.
 
-    O(H*W) per-row histogram sweep in numpy/python: the JAX package's form
-    without its optional native host path (which gives the same rectangle).
+    O(H*W) per-row histogram sweep. The native C++ host path
+    (`autopanostitch_tpu_torch.native.max_rectangle`) is used where g++
+    builds it; this numpy/python form is the path without it and the
+    reference implementation for tests.
     """
+    try:
+        from autopanostitch_tpu_torch.native import max_rectangle as _native
+
+        return _native(mask)
+    except (OSError, subprocess.SubprocessError):  # no g++ or no loadable library
+        pass
     H, W = mask.shape
     heights = np.zeros(W, np.int64)
     best = (0, 0, 0, 0, 0)  # area, r1, left, right, height

@@ -19,9 +19,18 @@ where the reference folds its key with a tag (1: the pairwise second pass,
 2: the re-extracting second pass, 3: the rescue), the port seeds a fresh
 generator from (seed, tag) (`derived_generator`), so each of those draws
 starts from the same state for every component, as the reference's folded
-keys do. The port raises NotImplementedError, naming the ROADMAP item,
-where the reference would run something it has not ported: the
-approximate matcher (A11.5) and annotations (A11.6).
+keys do.
+
+Every matcher takes `cfg.tpu.compute_dtype` ("float32" or "bfloat16") for
+its distances' cross term, as the reference does. With `cache_dir`, the
+features, the post-rescue match graph and each component's bundle
+adjustment are saved to and resumed from npz files under the reference's
+keys (`utils/cache.py`). `cfg.post.show_panorama_imgs_nums` adds each
+projection drawn with the images' outlines and numbers
+(`projections_annotated`, `models/annotate.py`). `_check_supported`
+refuses, before any work, what neither package takes (a matching method or
+compute dtype) and what the card's kernels do not take (k > 16, widths
+above 256, descriptor grids beyond B2's).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import torch
 from autopanostitch_tpu_torch import device as device_mod
 from autopanostitch_tpu_torch.config import StitchConfig
 from autopanostitch_tpu_torch.kernels import knn, sift_window
+from autopanostitch_tpu_torch.models import annotate as annotate_stage
 from autopanostitch_tpu_torch.models import bundle as bundle_stage
 from autopanostitch_tpu_torch.models import bundle_h as bundle_h_stage
 from autopanostitch_tpu_torch.models import crop as crop_stage
@@ -50,6 +60,7 @@ from autopanostitch_tpu_torch.ops import ransac as rs
 from autopanostitch_tpu_torch.ops import sampling as samp_ops
 from autopanostitch_tpu_torch.ops.sift import SiftFeatures
 from autopanostitch_tpu_torch.utils import image_io
+from autopanostitch_tpu_torch.utils.cache import StageCache, fingerprint
 from autopanostitch_tpu_torch.utils.image_io import ImageSet
 
 
@@ -102,10 +113,6 @@ def _stage(timer, name: str):
     return timer.stage(name) if timer is not None else contextlib.nullcontext()
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to the torch package yet (ROADMAP {item})")
-
-
 def derived_generator(device, seed: int, tag: int) -> torch.Generator:
     """A torch.Generator on `device` seeded from (seed, tag): the port's
     counterpart of the reference's `jax.random.fold_in(key, tag)`."""
@@ -132,7 +139,8 @@ def _all_pairs_graph(desc, mask, cfg: StitchConfig, ratio: float):
     threshold, binary = _matcher_semantics(cfg)
     pairs, idx, m, n = mt.match_all_pairs(desc, mask, ratio=ratio,
                                           max_matches=cfg.matching.max_matches_per_pair,
-                                          threshold=threshold, binary=binary)
+                                          threshold=threshold, binary=binary,
+                                          compute_dtype=cfg.tpu.compute_dtype)
     return pairs, idx.cpu().numpy(), m.cpu().numpy(), n.cpu().numpy()
 
 
@@ -153,6 +161,7 @@ def match_features(feats: SiftFeatures, cfg: StitchConfig):
     nn_idx, nn_dist, best, accepted = mt.global_match_stack(
         feats.desc, feats.mask, k=cfg.matching.k, method=cfg.matching.method,
         ratio=cfg.matching.ratio_threshold, binary=_matcher_semantics(cfg)[1],
+        compute_dtype=cfg.tpu.compute_dtype, block=cfg.tpu.match_block,
     )
     F = N * K
     image_id = np.repeat(np.arange(N, dtype=np.int32), K)
@@ -299,7 +308,8 @@ def pairwise_rescue(feats: SiftFeatures, graph: MatchGraph, comps: np.ndarray, n
         threshold, binary = _matcher_semantics(cfg)
         idx, m_, nm = (t.cpu().numpy() for t in mt.match_pair_list(
             feats.desc, feats.mask, cand, ratio=ratio,
-            max_matches=cfg.matching.max_matches_per_pair, threshold=threshold, binary=binary))
+            max_matches=cfg.matching.max_matches_per_pair, threshold=threshold, binary=binary,
+            compute_dtype=cfg.tpu.compute_dtype))
         c2 = np.zeros((n, n), np.int32)
         c2[cand[:, 0], cand[:, 1]] = nm
         c2 += c2.T
@@ -373,13 +383,21 @@ def connected_components(n: int, pairs: np.ndarray, accepted: np.ndarray) -> np.
 
 
 def _check_supported(cfg: StitchConfig, dev: torch.device) -> None:
-    if cfg.post.show_panorama_imgs_nums:
-        raise _not_ported("panorama annotations (show_panorama_imgs_nums)", "A11.6")
-    if dev.type == "cuda":  # the kernels' limits, before any work is done
+    """Raise ValueError, before any work, for a matching method or compute
+    dtype that neither package takes, and on the card for what its kernels
+    do not take: B2's descriptor grid, B1's width (<= 256) and, where the
+    pooled matcher runs B1, its k (<= 16, ROADMAP section 3)."""
+    mt.check_method(cfg.matching.method)
+    knn.check_compute_dtype(cfg.tpu.compute_dtype)
+    if dev.type == "cuda":
         det = cfg.detector
         if det.detector.upper() not in features_stage.BINARY_DETECTORS:  # B2's grid
             sift_window.check_grid(det.descriptor_width, det.descriptor_bins)
-        knn.check_width(features_stage.descriptor_width(det))
+        D = features_stage.descriptor_width(det)
+        knn.check_width(D)
+        pooled_b1 = cfg.matching.method == "exhaustive" or D <= mt.SKETCH_DIM
+        if pooled_b1 and not cfg.matching.match_pairwise:
+            knn.check_k(cfg.matching.k)
 
 
 def _upload(stack, dev):
@@ -394,30 +412,63 @@ def _feathers(sizes, images):
 
 
 def stitch(image_set: ImageSet, cfg: StitchConfig = StitchConfig(), seed: int = 0,
-           device="cuda", timer=None) -> StitchResult:
+           device="cuda", timer=None, *, cache_dir=None) -> StitchResult:
     """Stitch an unordered image set into one or more panoramas on `device`
     (no fallback: a CUDA device that is missing raises). Randomness comes
-    from torch.Generators seeded from `seed` (see the module doc)."""
+    from torch.Generators seeded from `seed` (see the module doc). With
+    `cache_dir`, the features, the post-rescue graph and each component's
+    bundle adjustment are resumed from (or saved to) npz files there under
+    the reference's fingerprints of the image names, sizes, the config
+    sections each stage reads and the seed."""
     _check_supported(cfg, torch.device(device))
     dev = device_mod.resolve(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     n = image_set.n
+    cache = key_feat = key_graph = key_ba = None
+    if cache_dir:
+        cache = StageCache(cache_dir)
+        names, sizes = image_set.names, image_set.sizes
+        key_feat = fingerprint(names, sizes, repr(cfg.detector))
+        key_graph = fingerprint(names, sizes, repr(cfg.detector) + repr(cfg.matching)
+                                + repr(cfg.image_match) + str(seed))
+        key_ba = fingerprint(names, sizes, repr(cfg.detector) + repr(cfg.matching)
+                             + repr(cfg.image_match) + repr(cfg.bundle) + str(seed))
     with _stage(timer, "features"):
         images = _upload(image_set.images, dev)
-        feats = features_stage.extract_features(images, image_set.sizes, cfg.detector)
+        cached = cache.load(key_feat, "features") if cache is not None else None
+        if cached is not None:
+            feats = SiftFeatures(**{k: torch.as_tensor(v, device=dev) for k, v in cached.items()})
+        else:
+            feats = features_stage.extract_features(images, image_set.sizes, cfg.detector)
+            if cache is not None:
+                cache.save(key_feat, "features",
+                           **{f: getattr(feats, f).cpu().numpy() for f in feats._fields})
     feathers = _feathers(image_set.sizes, images)
-    with _stage(timer, "matching"):
-        pairs, pair_idx, pair_mask, counts, votes = match_features(feats, cfg)
-        if len(pairs):
-            pairs, pair_idx, pair_mask = select_candidate_pairs(
-                pairs, pair_idx, pair_mask, counts, cfg.image_match.m_brown_lowe)
-    with _stage(timer, "ransac"):
-        graph = verify_matches(feats, pairs, pair_idx, pair_mask, counts, cfg, gen)
+    graph = None
+    if cache is not None:
+        cg = cache.load(key_graph, "graph")
+        if cg is not None:
+            graph = MatchGraph(**{k: cg[k] for k in MatchGraph.__dataclass_fields__})
+    fresh_graph = graph is None
+    votes = None
+    if fresh_graph:
+        with _stage(timer, "matching"):
+            pairs, pair_idx, pair_mask, counts, votes = match_features(feats, cfg)
+            if len(pairs):
+                pairs, pair_idx, pair_mask = select_candidate_pairs(
+                    pairs, pair_idx, pair_mask, counts, cfg.image_match.m_brown_lowe)
+        with _stage(timer, "ransac"):
+            graph = verify_matches(feats, pairs, pair_idx, pair_mask, counts, cfg, gen)
     comps = connected_components(n, graph.pairs, graph.accepted)
-    with _stage(timer, "pairwise_rescue"):
-        graph, comps, rescue_adopted = pairwise_rescue(
-            feats, graph, comps, n, cfg, derived_generator(dev, seed, 3), votes=votes)
+    rescue_adopted = False
+    if fresh_graph:
+        with _stage(timer, "pairwise_rescue"):
+            graph, comps, rescue_adopted = pairwise_rescue(
+                feats, graph, comps, n, cfg, derived_generator(dev, seed, 3), votes=votes)
+        if cache is not None:  # the post-rescue graph: a resumed run skips the rescue
+            cache.save(key_graph, "graph", **{k: np.asarray(getattr(graph, k))
+                                              for k in MatchGraph.__dataclass_fields__})
     # a per-pair dense graph (pairwise mode, or an adopted rescue) would only
     # recompute the same matcher in the pairwise second pass: skip that one;
     # the re-extracting second pass still applies (it changes the features)
@@ -448,7 +499,8 @@ def stitch(image_set: ImageSet, cfg: StitchConfig = StitchConfig(), seed: int = 
                                           feathers, timer=timer)
         if result is None:
             result = stitch_component(image_set, graph, feats, members, cfg, images, feathers,
-                                      timer=timer)
+                                      timer=timer, cache=cache, cache_key=key_ba,
+                                      cache_label=int(label))
         panoramas.append(result)
     return StitchResult(panoramas=panoramas, graph=graph, components=comps, features=feats)
 
@@ -538,22 +590,59 @@ def _planar_pair_coords(graph: MatchGraph, keep, xy, sizes_all, cfg: StitchConfi
     return u_i, u_j, w
 
 
+def _load_ba(cache: StageCache, key: str, label, dev):
+    """A component's cached bundle adjustment (the reference's record, and
+    k1 where the run estimated it), or None."""
+    c = cache.load(key, f"ba{label}")
+    if c is None:
+        return None
+
+    def t(name):
+        return torch.as_tensor(c[name], device=dev)
+
+    return {
+        "members": c["members"], "pairs": c["pairs"], "pair_sel": c["pair_sel"],
+        "focal_init": float(c["focal_init"]), "seed": int(c["seed"]),
+        "no_rotation": bool(c["no_rotation"]),
+        "rot_consistency_deg": tuple(c["rot_consistency_deg"]),
+        "cameras": bundle_stage.Cameras(R=t("cam_R"), f=t("cam_f"), cx=t("cam_cx"),
+                                        cy=t("cam_cy"), k1=t("cam_k1") if "cam_k1" in c else None),
+    }
+
+
+def _save_ba(cache: StageCache, key: str, label, ba: Dict) -> None:
+    cams = ba["cameras"]
+    extra = {} if cams.k1 is None else {"cam_k1": cams.k1.cpu().numpy()}
+    cache.save(key, f"ba{label}", members=np.asarray(ba["members"]),
+               pairs=np.asarray(ba["pairs"]), pair_sel=np.asarray(ba["pair_sel"]),
+               focal_init=np.float64(ba["focal_init"]), seed=np.int64(ba["seed"]),
+               no_rotation=np.bool_(ba["no_rotation"]),
+               rot_consistency_deg=np.asarray(ba["rot_consistency_deg"]),
+               cam_R=cams.R.cpu().numpy(), cam_f=cams.f.cpu().numpy(),
+               cam_cx=cams.cx.cpu().numpy(), cam_cy=cams.cy.cpu().numpy(), **extra)
+
+
 def stitch_component(image_set: ImageSet, graph: MatchGraph, feats: SiftFeatures,
                      members: np.ndarray, cfg: StitchConfig, images, feathers,
-                     timer=None) -> Dict:
+                     timer=None, cache=None, cache_key=None, cache_label=None) -> Dict:
     """Bundle-adjust and render one component: the rotational body
     (straighten, gains, every projection) or, for a planar scan
     (`force_planar_scan` or BA's no-rotation verdict), homography BA and
-    planar compositing."""
+    planar compositing. With a StageCache, the bundle adjustment is resumed
+    from (or saved to) its record under (cache_key, cache_label)."""
     dev = images.device
     acc = graph.accepted
-    with _stage(timer, "bundle_adjustment"):
-        ba = bundle_stage.run_bundle_adjustment(
-            members, graph.pairs[acc], graph.pair_idx[acc], graph.pair_mask[acc],
-            graph.inliers[acc], graph.H[acc], feats.xy.cpu().numpy(), graph.counts,
-            image_set.sizes, cfg.bundle, force_planar=cfg.straighten.force_planar_scan,
-            device=dev,
-        )
+    ba = _load_ba(cache, cache_key, cache_label, dev) if cache is not None else None
+    if ba is None:
+        with _stage(timer, "bundle_adjustment"):
+            ba = bundle_stage.run_bundle_adjustment(
+                members, graph.pairs[acc], graph.pair_idx[acc], graph.pair_mask[acc],
+                graph.inliers[acc], graph.H[acc], feats.xy.cpu().numpy(), graph.counts,
+                image_set.sizes, cfg.bundle, force_planar=cfg.straighten.force_planar_scan,
+                device=dev,
+            )
+        if cache is not None:
+            _save_ba(cache, cache_key, cache_label, ba)
     sizes = image_set.sizes[members]
     mem_d = torch.as_tensor(members, device=dev)
     images_m, feathers_m = images[mem_d], feathers[mem_d]
@@ -583,6 +672,11 @@ def stitch_component(image_set: ImageSet, graph: MatchGraph, feats: SiftFeatures
         result["projections"] = {"planar": planar["panorama"]}
         result["coverage_by_mode"] = {"planar": planar["coverage"]}
         _apply_crop(result, cfg)
+        if cfg.post.show_panorama_imgs_nums:
+            boxes, centers = annotate_stage.warped_boxes_planar(
+                hba["H_abs"], sizes, planar["offset"], planar["scale"])
+            result["projections_annotated"] = {
+                "planar": annotate_stage.draw_annotations(planar["panorama"], boxes, centers)}
         return result
 
     cams = ba["cameras"]
@@ -625,6 +719,13 @@ def stitch_component(image_set: ImageSet, graph: MatchGraph, feats: SiftFeatures
     result["panorama"] = next(iter(projections.values()))
     result["coverage"] = result["coverage_by_mode"][cfg.render.projections[0]]
     _apply_crop(result, cfg)
+    if cfg.post.show_panorama_imgs_nums:
+        annotated = {}
+        for mode, pano_img in projections.items():
+            boxes, centers = annotate_stage.warped_boxes_rotational(
+                result["canvas"][mode], R, K, sizes, k1=k1)
+            annotated[mode] = annotate_stage.draw_annotations(pano_img, boxes, centers)
+        result["projections_annotated"] = annotated
     return result
 
 

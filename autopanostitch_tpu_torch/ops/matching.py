@@ -9,10 +9,23 @@
   list is one launch per memory-bounded chunk, and the ratio test, mutual
   check and compaction are batched over the pairs on the device.
 
+- The approximate pooled method (`global_knn(method="approximate")`):
+  plain PyTorch on the card, as the reference's is XLA and not a kernel:
+  per query block a 32-d random-projection sketch ranks every target, the
+  8k best go through exact expansion-form distances, and the k nearest of
+  those are kept.
+
+Every distance's cross term q.t runs in `compute_dtype` ("float32" or
+"bfloat16", the reference's `cfg.tpu.compute_dtype`), with float32 norms
+and sums.
+
 Binary ({0,1}) descriptors of the corner detectors run the same kernel:
 their squared L2 IS the Hamming distance. `binary=True` switches the ratio
 test to raw distances and the threshold to percent mismatched bits, as the
-reference does. The approximate method is not ported yet (ROADMAP A11.5).
+reference does. On {0,1} every bf16 product is exact and every sum an
+integer, so B1 runs them on its bf16 instance under either compute dtype
+(one product a k-step where 3xTF32 takes three, and no refinement), with
+results identical to the float32 ones.
 """
 
 from __future__ import annotations
@@ -20,28 +33,95 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from autopanostitch_tpu_torch.kernels.knn import knn, knn_pairs
+from autopanostitch_tpu_torch.kernels.knn import check_compute_dtype, knn, knn_pairs, operand
+from autopanostitch_tpu_torch.ops.sift import top_k_stable
+from autopanostitch_tpu_torch.utils import threefry
 
 _BIG = np.float32(1e18)
 _PAIR_CHUNK_BYTES = 1 << 30  # bound of `match_pair_list`'s working set per chunk
 # per pair and descriptor slot: the 2-NN both ways (32 B) and the
 # temporaries of `_match_from_nn` (distances, long indices, the sort)
 _PAIR_BYTES_PER_SLOT = 128
+METHODS = ("exhaustive", "approximate")
+SKETCH_SEED = 12345  # the reference's PRNGKey of the sketch matrix
+SKETCH_DIM = 32
 
 
-def global_knn(desc, mask, image_id, k: int = 4, method: str = "exhaustive"):
+def check_method(method: str) -> None:
+    if method not in METHODS:
+        raise ValueError(f"matching method {method!r} is not one of {METHODS}")
+
+
+def _kernel_dtype(compute_dtype: str, binary: bool) -> str:
+    """The operand type B1 runs: bf16 for binary descriptors (exact there,
+    see the module doc), else `compute_dtype`."""
+    return "bfloat16" if binary else compute_dtype
+
+
+def sketch_matrix(D: int, device) -> torch.Tensor:
+    """The approximate matcher's (D, 32) projection, the reference's
+    `jax.random.normal(PRNGKey(12345), (D, 32)) / sqrt(32)` (drawn by
+    `utils.threefry`)."""
+    G = threefry.normal(SKETCH_SEED, (D, SKETCH_DIM)) / np.sqrt(np.float32(SKETCH_DIM))
+    return torch.as_tensor(G.astype(np.float32), device=device)
+
+
+def _sqdist(a, b, compute_dtype: str):
+    """`pairwise_sqdist` of the reference: max(|a|^2 + |b|^2 - 2 a.b, 0),
+    norms in float32, the cross term in `compute_dtype`."""
+    na = torch.sum(a * a, dim=-1)
+    nb = torch.sum(b * b, dim=-1)
+    ab = operand(a, compute_dtype) @ operand(b, compute_dtype).T
+    return torch.clamp(na[:, None] + nb[None, :] - 2.0 * ab, min=0.0)
+
+
+def _approximate_knn(desc, mask, image_id, k: int, block: int, compute_dtype: str):
+    """The reference's approximate pooled kNN (`global_knn`, D > 32): per
+    query block, squared distances in the 32-d sketch `desc @ G` with the
+    same masks, the min(8k, F) best candidates (ties -> lower index), their
+    expansion-form distances (candidates masked in the sketch stay at
+    1e18), and the k nearest of those."""
+    F, D = desc.shape
+    big = float(_BIG)
+    desc_s = desc @ sketch_matrix(D, desc.device)  # (F, 32)
+    n_cand = min(8 * k, F)
+    idx_out, d_out = [], []
+    for s in range(0, F, block):
+        q, qs = desc[s : s + block], desc_s[s : s + block]
+        bad = ((image_id[s : s + block, None] == image_id[None, :]) | ~mask[None, :]
+               | ~mask[s : s + block, None])
+        d_s = torch.where(bad, big, _sqdist(qs, desc_s, compute_dtype))
+        cand = top_k_stable(-d_s, n_cand)[1]  # (b, C)
+        dc = desc[cand]  # (b, C, D)
+        qn = torch.sum(q * q, dim=-1)
+        tn = torch.sum(dc * dc, dim=-1)
+        qt = torch.bmm(operand(dc, compute_dtype), operand(q, compute_dtype)[:, :, None])[..., 0]
+        d_ex = torch.clamp(qn[:, None] + tn - 2.0 * qt, min=0.0)
+        d_ex = torch.where(torch.gather(d_s, 1, cand) >= big, big, d_ex)
+        vals, ii = top_k_stable(-d_ex, k)
+        idx_out.append(torch.gather(cand, 1, ii).to(torch.int32))
+        d_out.append(-vals)
+    return torch.cat(idx_out), torch.cat(d_out)
+
+
+def global_knn(desc, mask, image_id, k: int = 4, method: str = "exhaustive",
+               compute_dtype: str = "float32", block: int = 1024, binary: bool = False):
     """Pooled self-kNN over all images' descriptors, same-image and invalid
     rows excluded before the top-k. desc (F, D), mask (F,), image_id (F,).
-    Returns nn_idx (F, k) int32, nn_dist (F, k) float32 ascending (masked
-    -> 1e18)."""
-    if method != "exhaustive":
-        raise NotImplementedError(
-            f"matching method {method!r} is not ported yet (ROADMAP A11.5)"
-        )
-    ids = torch.where(mask, image_id.to(torch.int32), torch.full_like(image_id, -2, dtype=torch.int32))
+    `method` "exhaustive" (kernel B1) or "approximate" (a 32-d sketch's
+    8k candidates re-ranked exactly, D > 32; narrower descriptors run the
+    exhaustive path, as in the reference), `block` the approximate path's
+    query rows a step (the reference's `cfg.tpu.match_block`), `binary`
+    for {0,1} descriptors (see the module doc). Returns nn_idx (F, k)
+    int32, nn_dist (F, k) float32 ascending (masked -> 1e18)."""
+    check_method(method)
+    check_compute_dtype(compute_dtype)
     d = desc.float().contiguous()
+    if method == "approximate" and d.shape[1] > SKETCH_DIM:
+        return _approximate_knn(d, mask, image_id, k, block, compute_dtype)
+    ids = torch.where(mask, image_id.to(torch.int32), torch.full_like(image_id, -2, dtype=torch.int32))
     ids = ids.contiguous()
-    return knn(d, ids, d, ids, k)
+    return knn(d, ids, d, ids, k, compute_dtype=_kernel_dtype(compute_dtype, binary))
 
 
 def global_ratio_test(nn_idx, nn_dist, ratio: float = 0.6, binary: bool = False):
@@ -55,13 +135,15 @@ def global_ratio_test(nn_idx, nn_dist, ratio: float = 0.6, binary: bool = False)
 
 
 def global_match_stack(desc, mask, k: int = 4, method: str = "exhaustive",
-                       ratio: float = 0.6, binary: bool = False):
+                       ratio: float = 0.6, binary: bool = False,
+                       compute_dtype: str = "float32", block: int = 1024):
     """Pool (N, K, D) descriptors, kNN, ratio test. Returns
     (nn_idx (F, k), nn_dist (F, k), best (F,), accepted (F,)), F = N * K."""
     N, K, D = desc.shape
     image_id = torch.arange(N, dtype=torch.int32, device=desc.device).repeat_interleave(K)
     nn_idx, nn_dist = global_knn(desc.reshape(N * K, D), mask.reshape(N * K), image_id,
-                                 k=k, method=method)
+                                 k=k, method=method, compute_dtype=compute_dtype, block=block,
+                                 binary=binary)
     best, accepted = global_ratio_test(nn_idx, nn_dist, ratio=ratio, binary=binary)
     return nn_idx, nn_dist, best, accepted
 
@@ -80,14 +162,15 @@ def _pair_stack(desc_a, mask_a, desc_b, mask_b):
     return torch.stack([da, db]), torch.stack([ma, mb])
 
 
-def two_nn(desc_q, mask_q, desc_t, mask_t):
-    """Exact 2-nearest-neighbour in SSD space. Returns (idx1 (Mq,), d1, d2):
-    best target index and the best and second squared distances. Only
-    invalid targets are masked in the search; invalid queries keep their
-    true idx1 and get d1 = d2 = 1e18 (`two_nn` of the reference)."""
+def two_nn(desc_q, mask_q, desc_t, mask_t, compute_dtype: str = "float32"):
+    """Exact 2-nearest-neighbour in SSD space (the cross term in
+    `compute_dtype`). Returns (idx1 (Mq,), d1, d2): best target index and
+    the best and second squared distances. Only invalid targets are masked
+    in the search; invalid queries keep their true idx1 and get d1 = d2 =
+    1e18 (`two_nn` of the reference)."""
     desc, valid = _pair_stack(desc_q, mask_q, desc_t, mask_t)
     pairs = torch.tensor([[0, 1]], dtype=torch.int32, device=desc.device)
-    idx, dist = knn_pairs(desc.contiguous(), valid, pairs, 2)
+    idx, dist = knn_pairs(desc.contiguous(), valid, pairs, 2, compute_dtype=compute_dtype)
     Mq = desc_q.shape[0]
     idx, dist = idx[0, 0, :Mq], dist[0, 0, :Mq]
     big = torch.full_like(dist[:, 0], float(_BIG))
@@ -149,7 +232,8 @@ def _match_from_nn(idx, dist, mask_a, ratio: float, max_matches: int, threshold:
 
 
 def match_pair(desc_a, mask_a, desc_b, mask_b, ratio: float = 0.6, max_matches: int = 512,
-               threshold: float = float("inf"), binary: bool = False):
+               threshold: float = float("inf"), binary: bool = False,
+               compute_dtype: str = "float32"):
     """Match two descriptor sets: 2-NN both ways, Lowe ratio (d1 < r^2 d2
     on squared distances; binary: d1 <= r d2 on Hamming distances),
     threshold (SSD; binary: percent of the bits), mutual nearest check,
@@ -157,7 +241,8 @@ def match_pair(desc_a, mask_a, desc_b, mask_b, ratio: float = 0.6, max_matches: 
     [ia, ib] padded 0, m (max_matches,) bool, n () int32)."""
     desc, valid = _pair_stack(desc_a, mask_a, desc_b, mask_b)
     pairs = torch.tensor([[0, 1]], dtype=torch.int32, device=desc.device)
-    idx, dist = knn_pairs(desc.contiguous(), valid, pairs, 2)
+    idx, dist = knn_pairs(desc.contiguous(), valid, pairs, 2,
+                          compute_dtype=_kernel_dtype(compute_dtype, binary))
     out, m, n = _match_from_nn(idx, dist, mask_a[None], ratio, max_matches,
                                _threshold_cut(threshold, binary, desc.shape[-1]),
                                "binary" if binary else "float")
@@ -165,7 +250,8 @@ def match_pair(desc_a, mask_a, desc_b, mask_b, ratio: float = 0.6, max_matches: 
 
 
 def match_pair_list(desc, mask, pairs, ratio: float = 0.6, max_matches: int = 512,
-                    threshold: float = float("inf"), binary: bool = False):
+                    threshold: float = float("inf"), binary: bool = False,
+                    compute_dtype: str = "float32"):
     """Pairwise matching of an explicit (P, 2) image pair list. desc (N, K,
     D), mask (N, K), pairs (P, 2) int on the same device. The pairs go to
     kernel B1 in chunks whose working set stays near `_PAIR_CHUNK_BYTES`
@@ -184,14 +270,15 @@ def match_pair_list(desc, mask, pairs, ratio: float = 0.6, max_matches: int = 51
     outs = []
     for s in range(0, pairs.shape[0], chunk):
         cp = pairs[s : s + chunk]
-        idx, dist = knn_pairs(desc, mask, cp, 2)
+        idx, dist = knn_pairs(desc, mask, cp, 2, compute_dtype=_kernel_dtype(compute_dtype, binary))
         outs.append(_match_from_nn(idx, dist, mask[cp[:, 0].long()], ratio, max_matches, cut,
                                    "binary" if binary else "float"))
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
 def match_all_pairs(desc, mask, ratio: float = 0.6, max_matches: int = 512,
-                    threshold: float = float("inf"), binary: bool = False):
+                    threshold: float = float("inf"), binary: bool = False,
+                    compute_dtype: str = "float32"):
     """Pairwise matching over every (i < j) image pair. Returns (pairs (P, 2)
     int32 numpy, idx (P, M, 2), m (P, M), counts (P,)), P = N(N-1)/2 in
     lexicographic order."""
@@ -199,7 +286,7 @@ def match_all_pairs(desc, mask, ratio: float = 0.6, max_matches: int = 512,
     iu, ju = np.triu_indices(N, 1)
     pairs = np.stack([iu, ju], -1).astype(np.int32)
     idx, m, n = match_pair_list(desc, mask, pairs, ratio=ratio, max_matches=max_matches,
-                                threshold=threshold, binary=binary)
+                                threshold=threshold, binary=binary, compute_dtype=compute_dtype)
     return pairs, idx, m, n
 
 

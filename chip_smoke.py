@@ -14,8 +14,14 @@ Phases, each printing its own lines:
      rescue's shape (25 images x 2048 slots, all 300 pairs, both ways);
   3c. B1 on {0,1} descriptors (the corner detectors' 256 bits): pooled
      k = 4 at F = 12 x 2048 and the pair list of 66 pairs x 2048 slots at
-     D = 256, and both at D = 160 on 6 images; indices and distances
-     identical to the plain version;
+     D = 256, and both at D = 160 on 6 images, through the 3xTF32 and the
+     bf16 instance; indices and distances identical to the plain version
+     (binary descriptors then run on the bf16 instance);
+  3d. B1's bf16 instance (compute_dtype="bfloat16") against the plain bf16
+     version at phase 3's and 3b's shapes: indices identical outside 1e-5
+     ties, distances within 1e-5 relative; bound by one bf16 product;
+  3e. B1 at the widths it takes zero-padded (D = 16, 72) and at k = 12
+     (its K = 16 instance), both operand types, against the plain version;
   4. B2's first port (the SIFT window gather alone, off the main path now)
      against its plain version, bit-exact;
   4b. B2 fused (`sift_window.cu`: the orientation histogram and the
@@ -42,11 +48,16 @@ Phases, each printing its own lines:
      yaw ring (f = 600 px): one panorama, focal error, PSNR; then the
      feature stage again, split into its orientation and descriptor phases
      and the rest (`features_split`);
+  5b. the ring's pooled matcher in float32, bf16 and the approximate method
+     (times, nn_idx agreement with the exhaustive run), then the ring
+     stitched with compute_dtype="bfloat16" and with the approximate
+     matcher: one panorama of 20, focal error < 1 %, PSNR >= 40 dB;
   6. a multi-panorama folder: two interleaved 12-view 800x600 rings and a
      distractor view, ingested at 400 px with the originals kept, stitched
      with the default config in the spherical and cylindrical projections
      (pairwise rescue + re-extracting second pass): two panoramas, their
-     members, focal errors and PSNRs;
+     members, focal errors and PSNRs; 6b. the same with
+     compute_dtype="bfloat16" (the pair list on B1's bf16 instance);
   7. a planar scan: a 3x3 grid of 800x600 crops with ~35 % overlap,
      `force_planar_scan` and the linear blend: one panorama of 9, the
      corner error of the homographies, PSNR against the texture sampled as
@@ -58,8 +69,15 @@ Phases, each printing its own lines:
      and with KAZE, each held to the JAX package's result on the same scene
      (JAX_PHASE8, from tools/jax_gates.py): the same panoramas, focal error
      < 1 %, PSNR at least the JAX figure less 3 dB; ORB must launch B1 and
-     not B2, SURF and KAZE both.
-Phases 5-8 each count the kernels' launches from 0 and fail if a kernel of
+     not B2, SURF and KAZE both;
+  9. the 100-view ring of `bench.build_pano` (384x288, f = 350 px) with its
+     config: one panorama of 100, focal error < 1 %, PSNR >= 40 dB and >=
+     the JAX package's CPU result less 3 dB (JAX_PANO100), the stage split;
+  10. the command line, `python -m autopanostitch_tpu_torch.cli` on a
+     folder of a 12-view ring, twice with one `--cache`: the second run
+     resumes and writes the same files and panorama; then a stitch with
+     `show_panorama_imgs_nums` adds the annotated panorama.
+Phases 5-10 each count the kernels' launches from 0 and fail if a kernel of
 the path never launched. Then a JSON line of the kernels, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero without that line. This script imports nothing of JAX.
@@ -122,6 +140,33 @@ JAX_PHASE8 = {  # accepted / candidate pairs in the comments
 }
 
 
+# phase 5's 20-view ring stitched again with the reference's bf16 cross
+# term, and with the approximate matcher (phase 5b)
+RING = (20, 600.0, 800, 600, (1024, 2048))  # n, f, w, h, texture (h, w)
+RING_OPTIONS = {"bf16": {"tpu": {"compute_dtype": "bfloat16"}},
+                "approximate": {"matching": {"method": "approximate"}}}
+# phase 9: the 100-view ring of `bench.build_pano` (bench.py:153-189):
+# 384x288 views, f = 350 px, smooth_texture(7, 768, 2048), and its config
+PANO100_RING = (100, 350.0, 384, 288, (768, 2048))
+PANO100 = {"detector": {"max_keypoints": 512, "num_octaves": 3},
+           "matching": {"max_matches_per_pair": 256},
+           "image_match": {"ransac_batch": 256, "max_iter": 256},
+           "straighten": {"enabled": False},
+           "render": {"projections": ("spherical",)},
+           "blend": {"mode": "multiband"}}
+PANO100_TPU_PSNR = 46.57  # the JAX package's pano100 on TPU v5e (docs/ROUND5.md): history only
+# the JAX package's results on phases 5b and 9's scenes, on a CPU:
+#   python3 tools/jax_gates.py ring_bf16 ring_approximate pano100
+JAX_RING_OPTIONS = {  # accepted / candidate pairs in the comments
+    "bf16": {"panoramas": [list(range(20))], "focal_err": 0.0522766076028347,
+             "psnr": 49.230004081773345},  # 42/60
+    "approximate": {"panoramas": [list(range(20))], "focal_err": 0.0510152205824852,
+                    "psnr": 49.40713565836275},  # 41/60
+}
+JAX_PANO100 = {"panoramas": [list(range(100))], "focal_err": 0.1348702609539032,
+               "psnr": 46.44466983609692}  # 100/260
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -167,13 +212,13 @@ def bound_ms(flop: float, nbytes: float, flop_rate: float = TF32_FLOPS):
 
 
 def b1_record(label: str, flop: float, nbytes: float, err: float, bad: int, times: dict,
-              binary: bool = False) -> dict:
+              one_product: bool = False) -> dict:
     """Print B1's agreement, times, bound and share; return its record. The
-    product of float descriptors needs 3xTF32 (3 tensor-core flop a float32
-    flop). On {0,1} descriptors (`binary`) one product is enough, and it is
-    exact with bf16 operands and float32 sums, so the bound counts one pass
-    at the bf16 rate."""
-    ops, rate, unit = (flop, BF16_FLOPS, "bf16") if binary else (3 * flop, TF32_FLOPS, "3xTF32")
+    product of float descriptors in float32 needs 3xTF32 (3 tensor-core flop
+    a float32 flop). The bf16 instance does one product at the bf16 rate
+    (`one_product`), which is also all {0,1} descriptors need: there it is
+    exact with bf16 operands and float32 sums."""
+    ops, rate, unit = (flop, BF16_FLOPS, "bf16") if one_product else (3 * flop, TF32_FLOPS, "3xTF32")
     bound, by = bound_ms(ops, nbytes, rate)
     log(f"B1 {label}: max|dist diff|={err:.3e} idx mismatches outside ties={bad} "
         + " ".join(f"{k} {v:.3f} ms" for k, v in times.items())
@@ -202,6 +247,49 @@ def knn_agreement(idx_k, d_k, idx_p, d_p, tie: float = 1e-5):
     return err, int(bad.sum())
 
 
+def pooled_inputs(dev, F: int, n_img: int, D: int = 128, seed: int = 0):
+    """Unit descriptors (F, D) of n_img images: (desc, qid with ~10 %
+    invalid rows at -2, the plain image ids, self indices)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((F, D)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    ids = np.repeat(np.arange(n_img, dtype=np.int32), -(-F // n_img))[:F]
+    ids_m = np.where(rng.random(F) < 0.1, -2, ids).astype(np.int32)
+    return (torch.as_tensor(d, device=dev), torch.as_tensor(ids_m, device=dev),
+            torch.as_tensor(ids, device=dev), torch.arange(F, dtype=torch.int32, device=dev))
+
+
+def pair_inputs(dev, n_img: int, K: int, seed: int = 1):
+    """n_img images of K unit descriptor slots that re-observe one base set
+    with noise, ~10 % invalid slots, and every pair: (desc, valid, pairs)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal((K, 128)).astype(np.float32)
+    d = np.stack([base[rng.permutation(K)] + 0.6 * rng.standard_normal((K, 128)).astype(np.float32)
+                  for _ in range(n_img)])
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return (torch.as_tensor(d, device=dev), torch.as_tensor(rng.random((n_img, K)) > 0.1, device=dev),
+            torch.as_tensor(np.stack(np.triu_indices(n_img, 1), -1).astype(np.int32), device=dev))
+
+
+def bf16_agreement(idx_k, d_k, idx_p, d_p, rel: float = 1e-5, tie: float = 1e-5):
+    """(max relative distance difference over the finite neighbours, # index
+    mismatches outside ties, # distances off by more than `rel` relative) of
+    a bf16-instance result against the plain bf16 version with one
+    neighbour more."""
+    err, bad = knn_agreement(idx_k, d_k, idx_p, d_p, tie)
+    k = d_k.shape[1]
+    dk, dp = d_k.cpu().numpy(), d_p[:, :k].cpu().numpy()
+    real = dp < 1e17
+    diff = np.abs(dk - dp)[real]
+    ref = np.abs(dp)[real]
+    over = int((diff > rel * ref).sum())
+    return float((diff / np.maximum(ref, 1e-30)).max()) if diff.size else 0.0, bad, over
+
+
 def phase_b1(dev, F: int, n_img: int):
     """B1 kernel vs plain at the slice's pooled shape. Returns a record
     (as `b1_record`) for each of k = 4 and k = 2 with self exclusion."""
@@ -209,15 +297,7 @@ def phase_b1(dev, F: int, n_img: int):
 
     from autopanostitch_tpu_torch.kernels import knn as K
 
-    rng = np.random.default_rng(0)
-    d = rng.standard_normal((F, 128)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    desc = torch.as_tensor(d, device=dev)
-    ids = np.repeat(np.arange(n_img, dtype=np.int32), F // n_img)
-    ids_m = np.where(rng.random(F) < 0.1, -2, ids).astype(np.int32)  # ~10% invalid rows
-    qid = torch.as_tensor(ids_m, device=dev)
-    self_idx = torch.arange(F, dtype=torch.int32, device=dev)
-    idq = torch.as_tensor(ids, device=dev)
+    desc, qid, idq, self_idx = pooled_inputs(dev, F, n_img)
 
     rec = {}
     for label, args in (("k4", (desc, qid, desc, qid, 4)),
@@ -257,14 +337,7 @@ def phase_b1_pairs(dev, n_img: int, K: int):
 
     from autopanostitch_tpu_torch.kernels import knn as KN
 
-    rng = np.random.default_rng(1)
-    base = rng.standard_normal((K, 128)).astype(np.float32)
-    d = np.stack([base[rng.permutation(K)] + 0.6 * rng.standard_normal((K, 128)).astype(np.float32)
-                  for _ in range(n_img)])
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    desc = torch.as_tensor(d, device=dev)
-    valid = torch.as_tensor(rng.random((n_img, K)) > 0.1, device=dev)
-    pairs = torch.as_tensor(np.stack(np.triu_indices(n_img, 1), -1).astype(np.int32), device=dev)
+    desc, valid, pairs = pair_inputs(dev, n_img, K)
     idx_k, d_k = KN.knn_pairs(desc, valid, pairs, 2)
     idx_p, d_p = KN.knn_pairs_plain(desc, valid, pairs, 3)
     if dev.type == "cuda":
@@ -294,9 +367,12 @@ def phase_b1_wide(dev, n_img: int, K: int, narrow: int):
     """B1 on {0,1} descriptors, the corner detectors' binary bits: pooled
     k = 4 over n_img images of K rows and the pair list of all their pairs
     at D = 256, and both modes at D = 160 (a width that is neither 128 nor
-    256) on `narrow` images. Every distance is an integer, so indices and
-    distances must EQUAL the plain version's. Returns records as
-    `b1_record` for the D = 256 pooled and pair-list runs."""
+    256) on `narrow` images, each through the 3xTF32 and the bf16 instance.
+    Every distance is an integer, so indices and distances of both must
+    EQUAL the plain version's; the matcher then runs binary descriptors on
+    the bf16 instance (`ops/matching._kernel_dtype`). Returns records as
+    `b1_record` for the D = 256 pooled and pair-list runs of the bf16
+    instance, with the 3xTF32 instance's time beside it."""
     import torch
 
     from autopanostitch_tpu_torch.kernels import knn as KN
@@ -311,14 +387,18 @@ def phase_b1_wide(dev, n_img: int, K: int, narrow: int):
         valid = torch.as_tensor(rng.random((n, K)) > 0.1, device=dev)
         pairs = torch.as_tensor(np.stack(np.triu_indices(n, 1), -1).astype(np.int32), device=dev)
         slots = desc.reshape(n, K, D)
-        pooled_k, pooled_p = KN.knn(desc, qid, desc, qid, 4), KN.knn_plain(desc, qid, desc, qid, 4)
-        pair_k, pair_p = KN.knn_pairs(slots, valid, pairs, 2), KN.knn_pairs_plain(slots, valid, pairs, 2)
-        sync(dev)
-        for mode, got, ref in (("pooled", pooled_k, pooled_p), ("pairs", pair_k, pair_p)):
-            same_i, same_d = bool(torch.equal(got[0], ref[0])), bool(torch.equal(got[1], ref[1]))
-            log(f"B1 binary D={D} {mode}: indices identical={same_i} distances identical={same_d}")
-            if not (same_i and same_d):
-                raise AssertionError(f"B1 D={D} {mode} on binary descriptors differs from plain")
+        pooled_p, pair_p = KN.knn_plain(desc, qid, desc, qid, 4), KN.knn_pairs_plain(slots, valid, pairs, 2)
+        for cd in ("float32", "bfloat16"):
+            pooled_k = KN.knn(desc, qid, desc, qid, 4, compute_dtype=cd)
+            pair_k = KN.knn_pairs(slots, valid, pairs, 2, compute_dtype=cd)
+            sync(dev)
+            for mode, got, ref in (("pooled", pooled_k, pooled_p), ("pairs", pair_k, pair_p)):
+                same_i, same_d = bool(torch.equal(got[0], ref[0])), bool(torch.equal(got[1], ref[1]))
+                log(f"B1 binary D={D} {mode} {cd} instance: indices identical={same_i} "
+                    f"distances identical={same_d}")
+                if not (same_i and same_d):
+                    raise AssertionError(f"B1 D={D} {mode} {cd} on binary descriptors differs "
+                                         "from plain")
         del pooled_k, pooled_p, pair_k, pair_p
         if D != 256:
             continue
@@ -326,24 +406,117 @@ def phase_b1_wide(dev, n_img: int, K: int, narrow: int):
         pl = pairs.long()
         qs = torch.cat([slots[pl[:, 0]], slots[pl[:, 1]]])
         ts = torch.cat([slots[pl[:, 1]], slots[pl[:, 0]]])
+        bf = "bfloat16"
         runs = {
-            "pooled": (lambda: KN.knn(desc, qid, desc, qid, 4),
+            "pooled": (lambda: KN.knn(desc, qid, desc, qid, 4, compute_dtype=bf),
+                       lambda: KN.knn(desc, qid, desc, qid, 4),
                        lambda: library_knn(desc, desc, 4), lambda: torch.mm(desc, desc.T),
                        lambda: KN.knn_plain(desc, qid, desc, qid, 4),
                        2.0 * F * F * D, F * D * 4 + F * 4 + F * 4 * 8,
                        f"binary pooled: F={F} ({n} x {K}) D={D} k=4"),
-            "pairs": (lambda: KN.knn_pairs(slots, valid, pairs, 2),
+            "pairs": (lambda: KN.knn_pairs(slots, valid, pairs, 2, compute_dtype=bf),
+                      lambda: KN.knn_pairs(slots, valid, pairs, 2),
                       lambda: library_knn(qs, ts, 2), lambda: torch.bmm(qs, ts.transpose(1, 2)),
                       lambda: KN.knn_pairs_plain(slots, valid, pairs, 2),
                       2.0 * 2 * P * K * K * D, n * K * (D * 4 + 1) + P * 8 + P * 2 * K * 2 * 8,
                       f"binary pairs: {n} images x {K} slots, {P} pairs x 2 directions, D={D}"),
         }
-        for mode, (kern, lib, mm, plain, flop, nbytes, label) in runs.items():
-            times = {"kernel": time_ms(kern, dev), "library": time_ms(lib, dev),
-                     "mm": time_ms(mm, dev), "plain": time_ms(plain, dev, reps=3)}
-            rec[mode] = b1_record(label, flop, nbytes, 0.0, 0, times, binary=True)
+        for mode, (kern, tf32, lib, mm, plain, flop, nbytes, label) in runs.items():
+            times = {"kernel": time_ms(kern, dev), "tf32": time_ms(tf32, dev),
+                     "library": time_ms(lib, dev), "mm": time_ms(mm, dev),
+                     "plain": time_ms(plain, dev, reps=3)}
+            rec[mode] = b1_record(label + " (bf16 instance)", flop, nbytes, 0.0, 0, times,
+                                  one_product=True)
+            rec[mode]["tf32_ms"] = times["tf32"]
         del qs, ts
     return rec
+
+
+def phase_b1_bf16(dev, F: int, n_img: int, pairs_shape):
+    """Phase 3d: B1's bf16 instance (compute_dtype="bfloat16") against the
+    plain bf16 version at phase 3's pooled shape (k = 4) and phase 3b's pair
+    list: indices identical outside 1e-5 ties, distances within 1e-5
+    relative. Timed beside `cdist` + `topk` and a bare bf16 `mm` / `bmm`,
+    bound by one bf16 product at 989 TFLOP/s. Returns {"pooled": record,
+    "pairs": record} as `b1_record`."""
+    import torch
+
+    from autopanostitch_tpu_torch.kernels import knn as KN
+
+    bf = "bfloat16"
+    desc, qid, _, _ = pooled_inputs(dev, F, n_img)
+    pdesc, valid, pairs = pair_inputs(dev, *pairs_shape)
+    n_p, Kc = pairs_shape
+    P = pairs.shape[0]
+    pl = pairs.long()
+    rec = {}
+    for mode in ("pooled", "pairs"):
+        if mode == "pooled":
+            kern = lambda: KN.knn(desc, qid, desc, qid, 4, compute_dtype=bf)  # noqa: E731
+            plain = lambda k=4: KN.knn_plain(desc, qid, desc, qid, k, compute_dtype=bf)  # noqa: E731
+            q = t = desc
+            flop, nbytes = 2.0 * F * F * 128, F * 128 * 4 + F * 4 + F * 4 * 8
+            label = f"bf16 pooled: F={F} D=128 k=4"
+        else:
+            kern = lambda: KN.knn_pairs(pdesc, valid, pairs, 2, compute_dtype=bf)  # noqa: E731
+            plain = lambda k=2: KN.knn_pairs_plain(pdesc, valid, pairs, k, compute_dtype=bf)  # noqa: E731
+            q = torch.cat([pdesc[pl[:, 0]], pdesc[pl[:, 1]]])
+            t = torch.cat([pdesc[pl[:, 1]], pdesc[pl[:, 0]]])
+            flop = 2.0 * 2 * P * Kc * Kc * 128
+            nbytes = n_p * Kc * (128 * 4 + 1) + P * 8 + P * 2 * Kc * 2 * 8
+            label = f"bf16 pairs: {n_p} images x {Kc} slots, {P} pairs x 2 directions, k=2"
+        idx_k, d_k = kern()
+        k = idx_k.shape[-1]
+        idx_p, d_p = plain(k + 1)
+        sync(dev)
+        rel, bad, over = bf16_agreement(idx_k.reshape(-1, k), d_k.reshape(-1, k),
+                                        idx_p.reshape(-1, k + 1), d_p.reshape(-1, k + 1))
+        del idx_p, d_p
+        qb, tb = q.to(torch.bfloat16), t.to(torch.bfloat16)
+        mm = ((lambda: torch.mm(qb, tb.T)) if mode == "pooled"
+              else (lambda: torch.bmm(qb, tb.transpose(1, 2))))
+        times = {"kernel": time_ms(kern, dev), "library": time_ms(lambda: library_knn(q, t, k), dev),
+                 "mm": time_ms(mm, dev), "plain": time_ms(plain, dev, reps=3)}
+        del qb, tb
+        log(f"B1 {label}: max relative distance difference {rel:.3e} (gate 1e-5), distances "
+            f"beyond it {over}, idx mismatches outside ties {bad}; mm is a bare bf16 product")
+        rec[mode] = b1_record(label, flop, nbytes, rel, bad, times, one_product=True)
+        if bad or over:
+            raise AssertionError(f"B1's bf16 instance ({mode}) disagrees with its plain version")
+    return rec
+
+
+def phase_b1_shapes(dev, F: int, n_img: int):
+    """Phase 3e: descriptor widths the kernel takes zero-padded (D = 16, a
+    2x2x4 SIFT grid, and 72, a 3x3x8 one) and k = 12 (the K = 16 instance),
+    each in both operand types, against the plain version: 3xTF32 with
+    distances within 1e-4, bf16 within 1e-5 relative, indices identical
+    outside ties. Returns {label: kernel ms}."""
+    from autopanostitch_tpu_torch.kernels import knn as KN
+
+    out = {}
+    for D, k in ((16, 4), (72, 4), (128, 12)):
+        desc, qid, _, _ = pooled_inputs(dev, F, n_img, D=D, seed=D + k)
+        for cd in ("float32", "bfloat16"):
+            idx_k, d_k = KN.knn(desc, qid, desc, qid, k, compute_dtype=cd)
+            idx_p, d_p = KN.knn_plain(desc, qid, desc, qid, k + 1, compute_dtype=cd)
+            sync(dev)
+            if cd == "bfloat16":
+                err, bad, over = bf16_agreement(idx_k, d_k, idx_p, d_p)
+                gate = f"max relative distance difference {err:.3e} (gate 1e-5)"
+                ok = not (bad or over)
+            else:
+                err, bad = knn_agreement(idx_k, d_k, idx_p, d_p)
+                gate = f"max |dist diff| {err:.3e} (gate 1e-4)"
+                ok = not bad and err <= 1e-4
+            ms = time_ms(lambda: KN.knn(desc, qid, desc, qid, k, compute_dtype=cd), dev)
+            label = f"D={D} k={k} {cd}"
+            log(f"B1 shapes {label}: F={F} {gate}, idx mismatches outside ties {bad}, "
+                f"kernel {ms:.3f} ms")
+            if not ok:
+                raise AssertionError(f"B1 at {label} disagrees with its plain version")
+            out[label] = ms
+    return out
 
 
 def phase_b2(dev, G: int, S3: int, H: int, W: int):
@@ -504,14 +677,15 @@ def phase_b2_fused(dev, cases):
     return recs
 
 
-def phase8_config(config, name: str):
-    """The StitchConfig of phase 8's option set `name`, from a config module
-    (the port's, or the JAX package's for its gates)."""
+def config_with(config, fields: dict):
+    """The default StitchConfig of a config module (the port's, or the JAX
+    package's for its gates) with `fields` ({section: {field: value}})
+    replaced."""
     import dataclasses
 
     base = config.StitchConfig()
-    return base.replace(**{sec: dataclasses.replace(getattr(base, sec), **fields)
-                           for sec, fields in PHASE8[name].items()})
+    return base.replace(**{sec: dataclasses.replace(getattr(base, sec), **f)
+                           for sec, f in fields.items()})
 
 
 def ring_scene(n: int, f: float, w: int, h: int, env_hw, cutoff: float = 0.08):
@@ -687,6 +861,159 @@ def phase_slice(dev, n: int, f_true: float, w: int, h: int, env_hw):
     require_launches("slice", counts, ("knn", "orient_hist", "descriptor"), dev)
     split = features_split(iset.images, iset.sizes, dev)
     log("slice: features stage split s " + json.dumps(split))
+    return counts, res.features
+
+
+def ring_gates(label: str, res, env, Rs, n: int, f_true: float, psnr_min: float, jax=None):
+    """One panorama of all n views, focal error < 1 %, PSNR >= psnr_min."""
+    panos = sorted(sorted(np.asarray(p["members"]).tolist()) for p in res.panoramas)
+    full = [p for p in res.panoramas if len(p["members"]) == n]
+    psnr, ferr = pano_psnr(full[0], env, Rs, f_true) if full else (float("nan"),) * 2
+    log(f"{label}: panoramas of {[len(p) for p in panos]} views, accepted pairs "
+        f"{int(np.asarray(res.graph.accepted).sum())}/{len(res.graph.pairs)}, max focal error "
+        f"{ferr:.4f} %, PSNR {psnr:.3f} dB (gate {psnr_min:.2f})"
+        + (f" (JAX on a CPU: {json.dumps(jax)})" if jax else ""))
+    if panos != [list(range(n))]:
+        raise AssertionError(f"{label}: expected one panorama of {n}, got components "
+                             f"{np.asarray(res.components).tolist()}")
+    if not (ferr < 1.0 and psnr >= psnr_min):
+        raise AssertionError(f"{label}: focal error {ferr:.3f} % or PSNR {psnr:.2f} dB")
+    return psnr, ferr
+
+
+def phase_ring_options(dev, n: int, f_true: float, w: int, h: int, env_hw, feats, gates):
+    """Phase 5b: the pooled matcher on phase 5's ring features, exhaustive
+    float32 (B1), compute_dtype="bfloat16" (B1's bf16 instance) and the
+    approximate method (plain PyTorch), each timed (median of 3 on the host
+    clock, ending in a synchronize) with its `nn_idx` agreement with the
+    exhaustive run; then the ring stitched with each option set of
+    RING_OPTIONS: one panorama of n, focal error < 1 %, PSNR >= 40 dB.
+    `gates` (None in the rehearsal) holds the JAX package's results.
+    Returns {name: launch counts}."""
+    from autopanostitch_tpu_torch import config
+    from autopanostitch_tpu_torch.ops import matching as mt
+
+    valid = feats.mask.reshape(-1).cpu().numpy()
+    ref = None
+    for name, kw in (("exhaustive", {}), ("bf16", {"compute_dtype": "bfloat16"}),
+                     ("approximate", {"method": "approximate"})):
+        def run():
+            out = mt.global_match_stack(feats.desc, feats.mask, k=4, **kw)
+            sync(dev)
+            return out
+
+        out = run()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        nn = out[0].cpu().numpy()
+        ref = nn if ref is None else ref
+        rows = (nn == ref).all(1)[valid]
+        first = (nn[:, 0] == ref[:, 0])[valid]
+        log(f"ring matcher {name}: {float(np.median(walls)):.3f} ms (host clock, median of 3), "
+            f"nn_idx rows equal to the exhaustive run {rows.mean():.4%}, first neighbour "
+            f"{first.mean():.4%} of {int(valid.sum())} valid queries, accepted "
+            f"{int(out[3].sum())}")
+    iset, env, Rs = ring_scene(n, f_true, w, h, env_hw)
+    out = {}
+    for name, fields in RING_OPTIONS.items():
+        res, counts = run_stitch(f"ring_{name}", iset, config_with(config, fields), dev)
+        ring_gates(f"ring_{name}", res, env, Rs, n, f_true, 40.0, gates and gates[name])
+        need = ("orient_hist", "descriptor") + (("knn_bf16",) if name == "bf16" else ())
+        require_launches(f"ring_{name}", counts, need, dev)
+        if name == "approximate" and counts["knn"]:
+            raise AssertionError(f"the approximate matcher launched B1: {counts}")
+        out[name] = counts
+    return out
+
+
+def phase_cli(dev, n: int, f_true: float, w: int, h: int, env_hw):
+    """Phase 10: the command line on a folder of the n-view ring (PNG
+    files), twice with one stage cache: `python -m
+    autopanostitch_tpu_torch.cli <folder> --device <dev> --cache <dir>
+    --show-adjacency --show-keypoints`. The second run resumes from the
+    cache and must write the same file names and the same panorama within
+    40 dB PSNR of the first run's. Then a config-driven stitch of the ring
+    with `show_panorama_imgs_nums` must add the annotated panorama."""
+    import subprocess
+    import tempfile
+
+    from autopanostitch_tpu_torch import config
+    from autopanostitch_tpu_torch.utils import image_io
+
+    iset, env, Rs = ring_scene(n, f_true, w, h, env_hw)
+    with tempfile.TemporaryDirectory(prefix="apst_cli_") as tmp:
+        folder = os.path.join(tmp, "ring")
+        os.makedirs(folder)
+        for k in range(n):
+            image_io.save_image(os.path.join(folder, f"v{k:02d}.png"), iset.images[k])
+        files, panos = [], []
+        for r in range(2):
+            out = os.path.join(tmp, f"out{r}")
+            cmd = [sys.executable, "-m", "autopanostitch_tpu_torch.cli", folder, "--device", dev.type,
+                   "--cache", os.path.join(tmp, "cache"), "--show-adjacency", "--show-keypoints",
+                   "--out", out]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=900)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"cli run {r} exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                                     f"\n{proc.stderr[-3000:]}")
+            stages = [ln.strip() for ln in proc.stdout.splitlines() if "execution time" in ln]
+            files.append(sorted(os.listdir(out)))
+            panos.append(image_io.load_image(os.path.join(out, "spherical_ring_0.png")))
+            log(f"cli run {r}: {wall:.1f} s of process wall time, {len(files[-1])} files "
+                f"{files[-1][:3]}..., {'; '.join(stages)}")
+        cached = sorted(f.split("_", 1)[1] for f in os.listdir(os.path.join(tmp, "cache")))
+    same = panos[0].shape == panos[1].shape
+    mse = float(np.mean((panos[0] - panos[1]) ** 2)) if same else float("nan")
+    psnr = 10 * np.log10(1.0 / max(mse, 1e-12)) if same else float("nan")
+    log(f"cli: cache {cached}; second run's panorama {panos[1].shape} against the first's "
+        f"{panos[0].shape}: identical={same and mse == 0.0}, PSNR {psnr:.2f} dB (gate 40)")
+    want = {"spherical_ring_0.png", "adjacency_ring.png"} | {f"keypoints_ring_v{k:02d}.png"
+                                                              for k in range(n)}
+    if files[0] != files[1] or set(files[0]) != want:
+        raise AssertionError(f"cli files {files}")
+    if not psnr >= 40.0:
+        raise AssertionError(f"cli: the resumed panorama differs from the first ({psnr:.2f} dB)")
+    res, counts = run_stitch("annotated", iset,
+                             config_with(config, {"post": {"show_panorama_imgs_nums": True}}), dev)
+    pr = res.panoramas[0]
+    ann, pano = pr["projections_annotated"]["spherical"], pr["projections"]["spherical"]
+    drawn = int((ann != pano).any(-1).sum())
+    log(f"annotated: panorama {pano.shape}, annotated {ann.shape}, {drawn} pixels drawn")
+    if ann.shape != pano.shape or drawn < 1000:
+        raise AssertionError("the annotated panorama is missing or empty")
+    require_launches("annotated", counts, ("knn", "orient_hist", "descriptor"), dev)
+    return counts
+
+
+def phase_pano100(dev, n: int, f_true: float, w: int, h: int, env_hw, gate):
+    """Phase 9: the 100-view ring of `bench.build_pano` with its config
+    (PANO100): one panorama of n, focal error < 1 %, PSNR >= 40 dB and >=
+    the JAX package's on a CPU less 3 dB (`gate`, None in the rehearsal).
+    Prints the stage split and the gap to the TPU record (history)."""
+    from autopanostitch_tpu_torch import config
+
+    t0 = time.perf_counter()
+    iset, env, Rs = ring_scene(n, f_true, w, h, env_hw)
+    log(f"pano100: scene {n} views {w}x{h} f={f_true} built in {time.perf_counter() - t0:.1f} s")
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.reset_peak_memory_stats(dev)
+    res, counts = run_stitch("pano100", iset, config_with(config, PANO100), dev)
+    if dev.type == "cuda":
+        from autopanostitch_tpu_torch.utils import timing
+
+        log(f"pano100: device memory MB {json.dumps(timing.report_device_memory(device=dev))}")
+    psnr_min = max(40.0, gate["psnr"] - 3.0) if gate else 35.0
+    psnr, _ = ring_gates("pano100", res, env, Rs, n, f_true, psnr_min, gate)
+    log(f"pano100: PSNR {psnr:.3f} dB, {psnr - PANO100_TPU_PSNR:+.3f} dB from the JAX package's "
+        f"TPU v5e record {PANO100_TPU_PSNR} dB (history, not a target)")
+    require_launches("pano100", counts, ("knn", "orient_hist", "descriptor"), dev)
     return counts
 
 
@@ -757,7 +1084,7 @@ def features_split(images, sizes, dev, reps: int = 3) -> dict:
             kernels.reset_launch_counts()
             total = run()
         splits.append(dict(total=total, **spent))
-    counts = {k: v for k, v in kernels.launch_counts().items() if k not in ("knn", "knn_pairs")}
+    counts = {k: v for k, v in kernels.launch_counts().items() if not k.startswith("knn")}
     med = {k: float(np.median([s[k] for s in splits])) for k in splits[0]}
     return dict(features=float(np.median(walls)), orientation=med["orientation"],
                 descriptor=med["descriptor"],
@@ -788,25 +1115,29 @@ def require_launches(label: str, counts: dict, names, dev) -> None:
 
 
 def phase_multipano(dev, n: int, f_true: float, w: int, h: int, env_hw, limit: int,
-                    psnr_min: float):
-    from autopanostitch_tpu_torch.api import RenderConfig, StitchConfig
+                    psnr_min: float, compute_dtype: str = "float32"):
+    """Phase 6 (6b: with compute_dtype="bfloat16", the pair list on B1's
+    bf16 instance)."""
+    from autopanostitch_tpu_torch import config
 
+    label = "multipano" if compute_dtype == "float32" else "multipano_bf16"
     t0 = time.perf_counter()
     iset, truth = multipano_scene(n, f_true, w, h, env_hw, limit)
-    log(f"multipano: scene 2 x {n} views + 1 distractor, {w}x{h} ingested at "
+    log(f"{label}: scene 2 x {n} views + 1 distractor, {w}x{h} ingested at "
         f"{iset.images.shape[2]}x{iset.images.shape[1]}, built in {time.perf_counter() - t0:.1f} s")
     modes = ("spherical", "cylindrical")
-    cfg = StitchConfig(render=RenderConfig(projections=modes))
-    res, counts = run_stitch("multipano", iset, cfg, dev)
+    cfg = config_with(config, {"render": {"projections": modes},
+                               "tpu": {"compute_dtype": compute_dtype}})
+    res, counts = run_stitch(label, iset, cfg, dev)
     got = sorted(sorted(np.asarray(p["members"]).tolist()) for p in res.panoramas)
-    log(f"multipano: components {np.asarray(res.components).tolist()}, panoramas {got}, "
+    log(f"{label}: components {np.asarray(res.components).tolist()}, panoramas {got}, "
         f"accepted pairs {int(np.asarray(res.graph.accepted).sum())}/{len(res.graph.pairs)}")
     for p in res.panoramas:
-        log(f"multipano: panorama of {len(p['members'])} canvases "
+        log(f"{label}: panorama of {len(p['members'])} canvases "
             + str({m: p["projections"][m].shape[:2] for m in modes}))
     metrics = multipano_metrics(res, truth, f_true, modes)
     for r, (found, ferr, psnr) in enumerate(metrics):
-        log(f"multipano: ring {r} found={found} focal error {ferr} % PSNR "
+        log(f"{label}: ring {r} found={found} focal error {ferr} % PSNR "
             + json.dumps({m: round(v, 3) for m, v in psnr.items()}))
     if len(res.panoramas) != 2 or not all(m[0] for m in metrics):
         raise AssertionError(f"expected the two rings as two panoramas, got {got}")
@@ -817,7 +1148,10 @@ def phase_multipano(dev, n: int, f_true: float, w: int, h: int, env_hw, limit: i
             raise AssertionError(f"focal error {ferr:.3f} % >= 1 %")
         if not min(psnr.values()) >= psnr_min:
             raise AssertionError(f"PSNR {psnr} below {psnr_min} dB")
-    require_launches("multipano", counts, ("knn", "knn_pairs", "orient_hist", "descriptor"), dev)
+    need = ("knn", "knn_pairs", "orient_hist", "descriptor")
+    if compute_dtype == "bfloat16":
+        need += ("knn_bf16", "knn_pairs_bf16")
+    require_launches(label, counts, need, dev)
     return counts
 
 
@@ -887,7 +1221,7 @@ def phase_detectors(dev, n: int, f_true: float, w: int, h: int, env_hw, cutoff: 
     iset, env, Rs = ring_scene(n, f_true, w, h, env_hw, cutoff)
     out = {}
     for name in PHASE8:
-        res, counts = run_stitch(name, iset, phase8_config(config, name), dev)
+        res, counts = run_stitch(name, iset, config_with(config, PHASE8[name]), dev)
         if name.startswith("orb"):
             log(f"{name}: verify_pairs.last_stats {json.dumps(ransac.verify_pairs.last_stats)}")
         panos = sorted(sorted(np.asarray(p["members"]).tolist()) for p in res.panoramas)
@@ -916,13 +1250,16 @@ def main() -> int:
 
     if REHEARSE:
         dev = torch.device("cpu")
-        sizes = dict(F=2048, n_img=4, pairs=(6, 256), b1w=(4, 256, 3), b2=(2, 8, 96, 128),
+        sizes = dict(F=2048, n_img=4, pairs=(6, 256), b1w=(4, 256, 3), shapes_F=1024,
+                     b2=(2, 8, 96, 128),
                      b2f=[("octave0", 2 * 7, 96, 128, 64, 40, 80),
                           ("odd_w_coarse", 2 * 7, 38, 51, 16, 32, 32),
                           ("doh", 2 * 8, 96, 128, 2 * 64, 80, 80)],
                      ring=(12, 240.0, 320, 240, (512, 1024)),
                      multi=(10, 240.0, 320, 240, (512, 1024), 200, 35.0), planar=(320, 240, 40.0),
-                     detectors=(8, 240.0, 320, 240, (512, 1024), 0.2, None))
+                     detectors=(8, 240.0, 320, 240, (512, 1024), 0.2, None),
+                     ring_gates=None, pano100=(16, 175.0, 192, 144, (384, 1024), None),
+                     cli=(8, 240.0, 320, 240, (512, 1024)))
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA GPU",
@@ -930,14 +1267,15 @@ def main() -> int:
             return 1
         dev = torch.device("cuda", 0)
         sizes = dict(F=20 * 2048, n_img=20, pairs=(25, 2048), b1w=(12, 2048, 6),
-                     b2=(20, 8, 600, 800),
+                     shapes_F=8 * 2048, b2=(20, 8, 600, 800),
                      b2f=[("octave0", 20 * 7, 600, 800, 20 * 2048, 40, 80),
                           ("odd_w_coarse", 20 * 7, 38, 51, 20 * 128, 32, 32),
                           ("doh", 8 * 8, 600, 800, 8 * 2048, 80, 80)],
-                     ring=(20, 600.0, 800, 600, (1024, 2048)),
+                     ring=RING,
                      multi=(12, 600.0, 800, 600, (1024, 2048), 400, JAX_MULTIPANO_PSNR - 3.0),
                      planar=(800, 600, JAX_PLANAR_PSNR - 3.0),
-                     detectors=PHASE8_RING + (JAX_PHASE8,))
+                     detectors=PHASE8_RING + (JAX_PHASE8,), ring_gates=JAX_RING_OPTIONS,
+                     pano100=PANO100_RING + (JAX_PANO100,), cli=(12, 600.0, 800, 600, (1024, 2048)))
 
     import autopanostitch_tpu_torch  # noqa: F401  (fails outside the repo)
     from autopanostitch_tpu_torch.kernels import _build
@@ -969,13 +1307,21 @@ def main() -> int:
     b1 = phase_b1(dev, sizes["F"], sizes["n_img"])
     b1p = phase_b1_pairs(dev, *sizes["pairs"])
     b1w = phase_b1_wide(dev, *sizes["b1w"])
+    b1bf = phase_b1_bf16(dev, sizes["F"], sizes["n_img"], sizes["pairs"])
+    phase_b1_shapes(dev, sizes["shapes_F"], sizes["n_img"])
     b2 = phase_b2(dev, *sizes["b2"])
     b2f = phase_b2_fused(dev, sizes["b2f"])
-    runs = [phase_slice(dev, *sizes["ring"]), phase_multipano(dev, *sizes["multi"]),
-            phase_planar(dev, *sizes["planar"])]
+    ring_counts, ring_feats = phase_slice(dev, *sizes["ring"])
+    runs = [ring_counts]
+    runs += phase_ring_options(dev, *sizes["ring"], ring_feats, sizes["ring_gates"]).values()
+    del ring_feats
+    runs += [phase_multipano(dev, *sizes["multi"]),
+             phase_multipano(dev, *sizes["multi"], compute_dtype="bfloat16"),
+             phase_planar(dev, *sizes["planar"])]
     runs += phase_planar_models(dev, *sizes["planar"])
     det = phase_detectors(dev, *sizes["detectors"])
     runs += list(det.values())
+    runs += [phase_pano100(dev, *sizes["pano100"]), phase_cli(dev, *sizes["cli"])]
     counts = {k: sum(c[k] for c in runs) for k in runs[0]}
     orb = det["orb_mlesac_adaptive"]
     doh_runs = [det["surf"], det["kaze"]]
@@ -987,12 +1333,13 @@ def main() -> int:
     kernels = {"kernels": [
         {"name": "pooled_knn", "route": "cuda", "source": "autopanostitch_tpu_torch/csrc/knn.cu",
          "replaces": "autopanostitch_tpu/ops/pallas/match_kernel.py:129",
-         "launches": counts["knn"], "max_abs_err": max(b1["k4"]["err"], b1["k2_self"]["err"]),
+         "launches": counts["knn"] - counts["knn_bf16"],
+         "max_abs_err": max(b1["k4"]["err"], b1["k2_self"]["err"]),
          **{k: b1["k4"][k] for k in keys}, "bound_unit": b1_unit, "mm_ms": b1["k4"]["mm_ms"],
          "k2_self_ms": b1["k2_self"]["ms"]},
         {"name": "pair_knn", "route": "cuda", "source": "autopanostitch_tpu_torch/csrc/knn.cu",
          "replaces": "autopanostitch_tpu/ops/pallas/match_kernel.py:129",
-         "launches": counts["knn_pairs"], "max_abs_err": b1p["err"],
+         "launches": counts["knn_pairs"] - counts["knn_pairs_bf16"], "max_abs_err": b1p["err"],
          **{k: b1p[k] for k in keys}, "bound_unit": b1_unit, "mm_ms": b1p["mm_ms"]},
         {"name": "window_gather", "route": "cuda",
          "source": "autopanostitch_tpu_torch/csrc/window_gather.cu",
@@ -1015,15 +1362,29 @@ def main() -> int:
                           if name == "descriptor" else "")}
         for name in ("orient_hist", "descriptor")
     ] + [
+        {"name": f"{mode}_knn_bf16", "route": "cuda",
+         "source": "autopanostitch_tpu_torch/csrc/knn_bf16.cu",
+         "replaces": "autopanostitch_tpu/ops/pallas/match_kernel.py:129",
+         "launches": counts["knn_bf16" if mode == "pooled" else "knn_pairs_bf16"],
+         "max_abs_err": b1bf[mode]["err"], "max_err_is": "relative distance difference",
+         **{k: b1bf[mode][k] for k in keys}, "mm_ms": b1bf[mode]["mm_ms"],
+         "mm_is": "a bare bf16 mm / bmm of the same product",
+         "bound_unit": "one bf16 tensor-core product (2 Fq Ft D flop) at 989 TFLOP/s",
+         "launches_note": "the ring in bf16 (phase 5b), the folder in bf16 (phase 6b) and the "
+                          "ORB stitch (phase 8: binary descriptors run this instance)"}
+        for mode in ("pooled", "pairs")
+    ] + [
         {"name": f"{mode}_knn_binary256", "route": "cuda",
-         "source": "autopanostitch_tpu_torch/csrc/knn_wide.cu",
+         "source": "autopanostitch_tpu_torch/csrc/knn_bf16.cu",
          "replaces": "autopanostitch_tpu/ops/pallas/match_kernel.py:129",
          "launches": orb["knn" if mode == "pooled" else "knn_pairs"], "max_abs_err": 0.0,
          **{k: b1w[mode][k] for k in keys}, "mm_ms": b1w[mode]["mm_ms"],
+         "tf32_ms": b1w[mode]["tf32_ms"],
          "bound_unit": "one tensor-core product (2 Fq Ft D flop) at 989 TFLOP/s bf16: exact on "
                        "{0,1} descriptors",
-         "launches_note": "phase 8's ORB stitch (D = 256); indices and distances identical to "
-                          "the plain version at D = 256 and 160"}
+         "launches_note": "phase 8's ORB stitch (D = 256) on the bf16 instance; indices and "
+                          "distances of both instances identical to the plain version at D = 256 "
+                          "and 160 (tf32_ms: the 3xTF32 instance)"}
         for mode in ("pooled", "pairs")
     ] + [
         {"name": f"{name}_doh", "route": "cuda", "source": "autopanostitch_tpu_torch/csrc/sift_window.cu",

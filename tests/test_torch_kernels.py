@@ -11,7 +11,11 @@ and a numpy emulation of B1's 3xTF32 split bounds its distance error.
 B1's indices must be equal outside distance ties (1e-5) and its distances
 within atol 1e-4 (3xTF32 tensor-core sums, ~1e-6 on unit descriptors, in
 another order); on small-integer descriptors it is bit-equal to the plain
-version. B2 is bit-exact.
+version. Its bf16 instance (`compute_dtype="bfloat16"`) is held to the
+plain bf16 version with distances within 1e-5 relative (+1e-6: the same
+exact products summed in another order, no refinement), its padded widths
+(16, 72) and its K = 16 instance (9 <= k <= 16) like the others. B2 is
+bit-exact.
 """
 
 import numpy as np
@@ -41,10 +45,10 @@ def _pooled(seed, n_img, per, invalid=0.1):
     return d, ids, qid
 
 
-def _assert_knn_agrees(idx_k, d_k, idx_p, d_p, tie=1e-5):
+def _assert_knn_agrees(idx_k, d_k, idx_p, d_p, tie=1e-5, rtol=0.0, atol=1e-4):
     """Kernel (F, k) against a plain result with one neighbour more."""
     k = d_k.shape[1]
-    torch.testing.assert_close(d_k, d_p[:, :k], rtol=0, atol=1e-4)
+    torch.testing.assert_close(d_k, d_p[:, :k], rtol=rtol, atol=atol)
     gaps = (d_p[:, 1:] - d_p[:, :-1]).abs()
     distinct = gaps[:, :k] > tie
     distinct[:, 1:] &= gaps[:, : k - 1] > tie
@@ -168,18 +172,28 @@ def test_wrappers_reject_bad_inputs():
 
 
 def test_width_check_takes_multiples_of_32_up_to_256():
-    for D in (32, 128, 160, 256):
+    """The kernel's instances are multiples of 32 up to 256; the wrappers
+    pad any other width up to 256 with zero columns, so the check refuses
+    only widths above 256 (and 0)."""
+    for D in (16, 32, 72, 100, 128, 160, 256):
         tknn.check_width(D)
-    for D in (0, 100, 288, 512):
+    for D in (0, 288, 512):
         with pytest.raises(ValueError, match="256"):
             tknn.check_width(D)
+    for D, Dp in ((16, 32), (72, 96), (100, 128), (128, 128), (250, 256)):
+        x = torch.randn(5, D)
+        xp = tknn.pad_width(x)
+        assert xp.shape == (5, Dp) and torch.equal(xp[:, :D], x)
+        assert not xp[:, D:].any()
+    x = torch.randn(2, 3, 72)
+    assert tknn.pad_width(x).shape == (2, 3, 96)
 
 
 def test_library_is_named_by_source_hash():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libapst_kernels_")
     assert p == _build.library_path()
-    assert {s.name for s in _build.CSRC.glob("*.cu")} == {"knn.cu", "knn_wide.cu",
+    assert {s.name for s in _build.CSRC.glob("*.cu")} == {"knn.cu", "knn_wide.cu", "knn_bf16.cu",
                                                            "sift_window.cu", "window_gather.cu"}
     assert "knn.cuh" in {s.name for s in _build._sources()}
 
@@ -330,21 +344,23 @@ def _knn_case(seed, Fq, Ft, D, integer=False):
     return q, qid, t, tid
 
 
-def _run_knn_case(case, k, dev, exact=False):
+def _run_knn_case(case, k, dev, exact=False, compute_dtype="float32"):
     q, qid, t, tid = (torch.as_tensor(a, device=dev) for a in case)
     before = tknn.launches
-    idx_k, d_k = tknn.knn(q, qid, t, tid, k)
+    idx_k, d_k = tknn.knn(q, qid, t, tid, k, compute_dtype=compute_dtype)
     torch.cuda.synchronize()
     assert tknn.launches == before + 1
     if exact:
-        idx_p, d_p = tknn.knn_plain(q, qid, t, tid, k)
+        idx_p, d_p = tknn.knn_plain(q, qid, t, tid, k, compute_dtype=compute_dtype)
         assert torch.equal(d_k, d_p) and torch.equal(idx_k, idx_p)
     else:
-        idx_p, d_p = tknn.knn_plain(q, qid, t, tid, min(k + 1, t.shape[0]))
+        idx_p, d_p = tknn.knn_plain(q, qid, t, tid, min(k + 1, t.shape[0]),
+                                    compute_dtype=compute_dtype)
         if d_p.shape[1] == k:  # Ft == k: no neighbour beyond the k-th
             d_p = torch.cat([d_p, torch.full_like(d_p[:, :1], float("inf"))], 1)
             idx_p = torch.cat([idx_p, idx_p[:, :1]], 1)
-        _assert_knn_agrees(idx_k, d_k, idx_p, d_p)
+        tol = dict(rtol=1e-5, atol=1e-6) if compute_dtype == "bfloat16" else {}
+        _assert_knn_agrees(idx_k, d_k, idx_p, d_p, **tol)
 
 
 @pytest.mark.cuda
@@ -474,3 +490,117 @@ def test_knn_pairs_kernel_binary_descriptors_on_card(D):
         idx_k, d_k = tknn.knn_pairs(desc, val, pairs, k)
         idx_p, d_p = tknn.knn_pairs_plain(desc, val, pairs, k)
         assert torch.equal(d_k, d_p) and torch.equal(idx_k, idx_p), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,with_self", [(4, False), (2, True), (8, False), (12, False)])
+def test_knn_kernel_bf16_matches_plain_on_card(k, with_self):
+    """The bf16 instance (one bf16 product a k-step, float32 sums, no
+    refinement) against the plain bf16 version: the same exact products in
+    another order, so indices agree outside ties and distances within 1e-5
+    relative."""
+    dev = _cuda()
+    d, ids, qid = _pooled(1, n_img=6, per=700)
+    desc = torch.as_tensor(d, device=dev)
+    if with_self:
+        q = torch.as_tensor(ids, device=dev)
+        extra = (torch.arange(len(d), dtype=torch.int32, device=dev),)
+    else:
+        q = torch.as_tensor(qid, device=dev)
+        extra = ()
+    before = tknn.launches
+    idx_k, d_k = tknn.knn(desc, q, desc, q, k, *extra, compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert tknn.launches == before + 1 and idx_k.shape == (len(d), k)
+    idx_p, d_p = tknn.knn_plain(desc, q, desc, q, k + 1, *extra, compute_dtype="bfloat16")
+    _assert_knn_agrees(idx_k, d_k, idx_p, d_p, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 72, 128, 256])
+def test_knn_kernel_bf16_widths_on_card(D):
+    _run_knn_case(_knn_case(60 + D, 777, 1234, D), 4, _cuda(), compute_dtype="bfloat16")
+    _run_knn_case(_knn_case(60 + D, 777, 1234, D, integer=True), 4, _cuda(), exact=True,
+                  compute_dtype="bfloat16")
+
+
+@pytest.mark.cuda
+def test_knn_pairs_kernel_bf16_matches_plain_on_card():
+    """Pair-list mode, bf16 instance, against the plain bf16 version."""
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    d = rng.standard_normal((5, 300, 128)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    valid = rng.random((5, 300)) > 0.1
+    desc = torch.as_tensor(d, device=dev)
+    val = torch.as_tensor(valid, device=dev)
+    pairs = torch.as_tensor(np.stack(np.triu_indices(5, 1), -1).astype(np.int32), device=dev)
+    before = tknn.pair_launches
+    idx_k, d_k = tknn.knn_pairs(desc, val, pairs, 2, compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert tknn.pair_launches == before + 1
+    for p in range(10):
+        for side in range(2):
+            q = pairs[p, side].item()
+            t = pairs[p, 1 - side].item()
+            tid = torch.where(val[t], 0, -2).to(torch.int32)
+            wide = tknn.knn_plain(desc[q], torch.full((300,), -1, dtype=torch.int32, device=dev),
+                                  desc[t], tid, 3, compute_dtype="bfloat16")
+            _assert_knn_agrees(idx_k[p, side], d_k[p, side], *wide, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 72])
+def test_knn_kernel_padded_widths_on_card(D):
+    """Widths that are no multiple of 32 (D = 16: a 2x2x4 SIFT grid; 72:
+    3x3x8) go through zero-padded columns, both modes, both operand types."""
+    dev = _cuda()
+    _run_knn_case(_knn_case(80 + D, 777, 1234, D), 4, dev)
+    _run_knn_case(_knn_case(80 + D, 777, 1234, D, integer=True), 4, dev, exact=True)
+    rng = np.random.default_rng(90 + D)
+    desc = torch.as_tensor(rng.integers(0, 8, (6, 300, D)).astype(np.float32), device=dev)
+    val = torch.as_tensor(rng.random((6, 300)) > 0.1, device=dev)
+    pairs = torch.as_tensor(np.stack(np.triu_indices(6, 1), -1).astype(np.int32), device=dev)
+    for cd in ("float32", "bfloat16"):
+        idx_k, d_k = tknn.knn_pairs(desc, val, pairs, 2, compute_dtype=cd)
+        idx_p, d_p = tknn.knn_pairs_plain(desc, val, pairs, 2, compute_dtype=cd)
+        assert torch.equal(d_k, d_p) and torch.equal(idx_k, idx_p), cd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [9, 12, 16])
+def test_knn_kernel_k16_instance_on_card(k):
+    """9 <= k <= 16 run the K = 16 instance (3xTF32 in 64-column chunks)."""
+    dev = _cuda()
+    _run_knn_case(_knn_case(100 + k, 1000, 1500, 128), k, dev)
+    _run_knn_case(_knn_case(100 + k, 1000, 1500, 256), k, dev)
+    _run_knn_case(_knn_case(100 + k, 700, 900, 128, integer=True), k, dev, exact=True)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_refuses_k_above_16_on_card():
+    dev = _cuda()
+    q, qid, t, tid = (torch.as_tensor(a, device=dev) for a in _knn_case(5, 50, 60, 128))
+    with pytest.raises(ValueError, match="16"):
+        tknn.knn(q, qid, t, tid, 17)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [256, 160])
+def test_knn_kernel_binary_bf16_equals_float32_on_card(D):
+    """On {0,1} descriptors the bf16 instance gives, bit for bit, what the
+    3xTF32 instance with its refinement gives (pooled and pair list)."""
+    dev = _cuda()
+    rng = np.random.default_rng(50 + D)
+    d = torch.as_tensor(_bits(rng, (3000, D)), device=dev)
+    ids = np.repeat(np.arange(5, dtype=np.int32), 600)
+    qid = torch.as_tensor(np.where(rng.random(3000) < 0.1, -2, ids).astype(np.int32), device=dev)
+    a = tknn.knn(d, qid, d, qid, 4)
+    b = tknn.knn(d, qid, d, qid, 4, compute_dtype="bfloat16")
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    desc = d[:1800].reshape(6, 300, D)
+    val = torch.as_tensor(rng.random((6, 300)) > 0.1, device=dev)
+    pairs = torch.as_tensor(np.stack(np.triu_indices(6, 1), -1).astype(np.int32), device=dev)
+    a = tknn.knn_pairs(desc, val, pairs, 2)
+    b = tknn.knn_pairs(desc, val, pairs, 2, compute_dtype="bfloat16")
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

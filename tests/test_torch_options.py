@@ -103,6 +103,9 @@ def test_check_supported_takes_each_detectors_width():
     with pytest.raises(ValueError, match="descriptor_width"):
         tpipe._check_supported(orb.replace(detector=dataclasses.replace(odd, detector="SURF")),
                                cuda)
-    with pytest.raises(ValueError, match="multiple of 32"):  # 2 * 2 * 6 = 24 bins
-        tpipe._check_supported(cfg.replace(detector=dataclasses.replace(
-            cfg.detector, descriptor_width=2, descriptor_bins=6)), cuda)
+    # 2 * 2 * 6 = 24 bins: B1 takes it as 32 zero-padded columns
+    tpipe._check_supported(cfg.replace(detector=dataclasses.replace(
+        cfg.detector, descriptor_width=2, descriptor_bins=6)), cuda)
+    with pytest.raises(ValueError, match="16"):  # B1's pooled k
+        tpipe._check_supported(cfg.replace(matching=dataclasses.replace(cfg.matching, k=17)),
+                               cuda)

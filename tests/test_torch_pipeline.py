@@ -165,7 +165,10 @@ def test_port_imports_no_jax():
                                                   "autopanostitch_tpu_torch.")]
     assert {"autopanostitch_tpu_torch.api", "autopanostitch_tpu_torch.config",
             "autopanostitch_tpu_torch.utils.image_io", "autopanostitch_tpu_torch.models.crop",
-            "autopanostitch_tpu_torch.models.straighten"} <= set(mods)
+            "autopanostitch_tpu_torch.models.straighten", "autopanostitch_tpu_torch.cli",
+            "autopanostitch_tpu_torch.models.annotate", "autopanostitch_tpu_torch.utils.cache",
+            "autopanostitch_tpu_torch.utils.timing", "autopanostitch_tpu_torch.utils.threefry",
+            "autopanostitch_tpu_torch.native"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['autopanostitch_tpu'] = None\n"
             "sys.modules['jax'] = None\n"

@@ -87,9 +87,9 @@ def test_match_pair_list_chunks_match_jax(monkeypatch):
     monkeypatch.setattr(tmt, "_PAIR_CHUNK_BYTES", 2 * tmt._PAIR_BYTES_PER_SLOT * 96)
     calls = []
 
-    def counted(desc_, valid, pairs, k):
+    def counted(desc_, valid, pairs, k, compute_dtype="float32"):
         calls.append(pairs.shape[0])
-        return tknn.knn_pairs(desc_, valid, pairs, k)
+        return tknn.knn_pairs(desc_, valid, pairs, k, compute_dtype=compute_dtype)
 
     monkeypatch.setattr(tmt, "knn_pairs", counted)
     plist = np.array([[2, 3], [0, 2], [1, 3], [0, 1], [1, 2], [0, 3]], np.int32)

@@ -198,11 +198,15 @@ def test_copy_route_reads_the_stack_when_two_stages_do_not_fit():
     assert sw.copy_route(src, 120, "orient_hist") == "direct"
 
 
-@pytest.mark.parametrize("d,nbins", [(5, 8), (4, 17), (2, 4)])
-def test_stitch_on_cuda_rejects_grids_the_kernels_lack_before_any_work(d, nbins):
+@pytest.mark.parametrize("d,nbins,error,match", [(5, 8, ValueError, "descriptor"),
+                                                 (4, 17, ValueError, "descriptor"),
+                                                 (2, 4, RuntimeError, "cuda")],
+                         ids=["5-8", "4-17", "2-4"])
+def test_stitch_on_cuda_rejects_grids_the_kernels_lack_before_any_work(d, nbins, error, match):
     """A descriptor grid outside the descriptor kernel (d <= 4, nbins <= 16)
-    or a width B1 does not take (a multiple of 32, <= 128) fails at once,
-    whatever the machine, not inside extraction."""
+    fails at once, whatever the machine, not inside extraction. A grid both
+    kernels take passes the checks: 2x2x4 (D = 16), which B1 takes as 32
+    zero-padded columns, gets as far as the device (here: none)."""
     from autopanostitch_tpu_torch.api import ImageSet, StitchConfig
     from autopanostitch_tpu_torch.config import DetectorConfig
     from autopanostitch_tpu_torch.models import pipeline
@@ -210,7 +214,9 @@ def test_stitch_on_cuda_rejects_grids_the_kernels_lack_before_any_work(d, nbins)
     iset = ImageSet(images=np.zeros((2, 32, 32, 3), np.uint8),
                     sizes=np.full((2, 2), 32, np.int32), names=["a", "b"])
     cfg = StitchConfig(detector=DetectorConfig(descriptor_width=d, descriptor_bins=nbins))
-    with pytest.raises(ValueError, match="descriptor"):
+    if error is RuntimeError and torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the grid would stitch")
+    with pytest.raises(error, match=match):
         pipeline.stitch(iset, cfg, device="cuda")
 
 
