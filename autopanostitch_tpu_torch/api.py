@@ -1,10 +1,12 @@
-"""Public API of the port, under the names of `autopanostitch_tpu.api`:
-every name of it but `stitch_multichip` (multi-GPU is not ported yet,
-ROADMAP A11.7).
+"""Public API of the port, under the names of `autopanostitch_tpu.api`.
 
 >>> from autopanostitch_tpu_torch import api
 >>> iset = api.load_images(api.list_dataset("my_photos/"))
 >>> result = api.stitch(iset, device="cuda")
+
+Multi-GPU: start one process per card (`torchrun --nproc_per_node=<gpus>
+script.py`); each calls `api.stitch_multichip(iset)` with the same set,
+config and seed, and each gets the same result.
 """
 
 from __future__ import annotations
@@ -82,4 +84,7 @@ from autopanostitch_tpu_torch.models.annotate import (  # noqa: F401
     draw_matches,
     warped_boxes_planar,
     warped_boxes_rotational,
+)
+from autopanostitch_tpu_torch.parallel.pipeline import (  # noqa: F401
+    stitch_multichip,
 )

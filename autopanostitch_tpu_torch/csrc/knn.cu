@@ -268,9 +268,13 @@ extern "C" int apst_knn(const float* q, const int* qid, const int* qself, int Fq
     return (int)cudaErrorInvalidValue;
   if (misaligned(q) || misaligned(t)) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // one set (the norms once) only when the queries ARE the targets: queries
+  // that are a prefix of the targets (one address, Fq < Ft, as a rank's
+  // slice of the pool) need the targets' own norms
+  const bool same = t == q && Ft == Fq;
   row_norms<<<(Fq + 7) / 8, 256, 0, s>>>(q, Fq, D, qn);
-  if (t != q) row_norms<<<(Ft + 7) / 8, 256, 0, s>>>(t, Ft, D, tn);
-  const PooledArgs a{q, qid, qself, qn, Fq, t, tid, t != q ? tn : qn, Ft, out_idx, out_dist};
+  if (!same) row_norms<<<(Ft + 7) / 8, 256, 0, s>>>(t, Ft, D, tn);
+  const PooledArgs a{q, qid, qself, qn, Fq, t, tid, same ? qn : tn, Ft, out_idx, out_dist};
   const cudaError_t err = launch_any(bf16 != 0, k, D, a, s);
   if (err != cudaSuccess || bf16) return (int)err;
   return (int)launch_refine(PooledRows{q, t, D}, Fq, D, k, out_idx, out_dist, s);

@@ -12,8 +12,10 @@ from autopanostitch_tpu_torch.config import DetectorConfig
 from autopanostitch_tpu_torch.ops import corners, doh, kaze, sift
 from autopanostitch_tpu_torch.ops import sampling as samp
 from autopanostitch_tpu_torch.ops.sift import SiftFeatures
+from autopanostitch_tpu_torch.parallel import sharded
 
 BINARY_DETECTORS = ("HARRIS", "FAST", "ORB", "BRISK")  # 256-bit {0,1} descriptors
+SHARDED_DETECTORS = ("SIFT", "VL_SIFT")  # what the multi-GPU path extracts
 
 
 def descriptor_width(cfg: DetectorConfig) -> int:
@@ -36,12 +38,14 @@ def upsample_levels(cfg: DetectorConfig, sizes) -> int:
 
 
 def extract_features(images, sizes, cfg: DetectorConfig = DetectorConfig(),
-                     border: int = 6) -> SiftFeatures:
+                     border: int = 6, mesh=None) -> SiftFeatures:
     """Features of an (N, H, W, 3) padded stack (uint8 or float in [0, 1])
     on any device, by cfg.detector: 'HARRIS' | 'FAST' | 'ORB' | 'BRISK'
     (256-bit {0,1} descriptors), 'SURF', 'KAZE', else SIFT. Keypoints in the
     padding or within `border` px of the valid edge are masked; the
-    upsample levels apply to every detector."""
+    upsample levels apply to every detector. With a `parallel.mesh.Mesh`,
+    SIFT runs on the images split across its ranks (other detectors
+    raise)."""
     levels = upsample_levels(cfg, sizes)
     if images.dtype == torch.uint8:
         images = images.float() / 255.0
@@ -55,7 +59,11 @@ def extract_features(images, sizes, cfg: DetectorConfig = DetectorConfig(),
         sizes_t = sizes_t * s
         scale_back = 1.0 / s
     det = cfg.detector.upper()
-    if det in BINARY_DETECTORS:
+    if mesh is not None and det not in SHARDED_DETECTORS:
+        raise ValueError(f"the sharded extraction runs SIFT, not detector={cfg.detector!r}")
+    if mesh is not None:
+        feats = sharded.sharded_extract(gray, mesh, cfg)
+    elif det in BINARY_DETECTORS:
         feats = corners.extract_corners_batch(gray, cfg, det.lower())
     elif det == "SURF":
         feats = doh.extract_doh_batch(gray, cfg)

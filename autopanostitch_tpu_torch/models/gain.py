@@ -22,12 +22,15 @@ from autopanostitch_tpu_torch.ops import sampling as samp
 
 
 def overlap_statistics_imagespace(images, feathers, sizes, R, K, stride: int,
-                                  margin: float = 1.0, k1=None, max_elems: int = 1 << 25):
+                                  margin: float = 1.0, k1=None, max_elems: int = 1 << 25,
+                                  points: slice | None = None):
     """(Nij (N, N), sumC (N, N, 3)) tensors; Nij counts on image i's grid.
 
     images (N, H, W, 3), feathers (N, H, W), sizes (N, 2) int, R/K
     (N, 3, 3), k1 (N,) or None, all tensors on one device. Grid points run
-    in chunks of max_elems / N^2 to bound the (N, N, chunk) projection."""
+    in chunks of max_elems / N^2 to bound the (N, N, chunk) projection.
+    `points` restricts the sums to a range of the strided grid's points
+    (row-major), as the sharded statistics split them over ranks."""
     N, H, W, _ = images.shape
     dev = images.device
     col_all = images[:, ::stride, ::stride].reshape(N, -1, 3) * 255.0
@@ -44,6 +47,8 @@ def overlap_statistics_imagespace(images, feathers, sizes, R, K, stride: int,
         & (ys[None] >= margin) & (ys[None] <= h_v - 1 - margin)
         & (wf_own > 1e-4)
     )  # (N, P)
+    if points is not None:
+        xs, ys, own, col_all = xs[points], ys[points], own[:, points], col_all[:, points]
     Rt_Kinv = R.transpose(1, 2) @ geo.invert_K(K)
     if k1 is None:
         pix = torch.stack([xs, ys, torch.ones_like(xs)], -1)  # (P, 3)

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import Dict, List
 
@@ -59,6 +60,7 @@ from autopanostitch_tpu_torch.ops import matching as mt
 from autopanostitch_tpu_torch.ops import ransac as rs
 from autopanostitch_tpu_torch.ops import sampling as samp_ops
 from autopanostitch_tpu_torch.ops.sift import SiftFeatures
+from autopanostitch_tpu_torch.parallel import sharded
 from autopanostitch_tpu_torch.utils import image_io
 from autopanostitch_tpu_torch.utils.cache import StageCache, fingerprint
 from autopanostitch_tpu_torch.utils.image_io import ImageSet
@@ -144,13 +146,16 @@ def _all_pairs_graph(desc, mask, cfg: StitchConfig, ratio: float):
     return pairs, idx.cpu().numpy(), m.cpu().numpy(), n.cpu().numpy()
 
 
-def match_features(feats: SiftFeatures, cfg: StitchConfig):
+def match_features(feats: SiftFeatures, cfg: StitchConfig, mesh=None):
     """Feature matching: (pairs, pair_idx, pair_mask, counts, votes). Global
     pooled mode (default): votes is a lazy zero-argument callable giving the
     raw (N, N) kNN votes. Pairwise mode (`match_pairwise`): every pair on
-    B1's pair mode, and votes are the putative counts."""
-    N, K, _ = feats.desc.shape
-    if cfg.matching.match_pairwise:
+    B1's pair mode, and votes are the putative counts. With a
+    `parallel.mesh.Mesh`, the pooled mode always, its queries split across
+    the ranks (`sharded_global_knn`: exhaustive float32, as the
+    reference's)."""
+    N, K, D = feats.desc.shape
+    if cfg.matching.match_pairwise and mesh is None:
         pairs, idx, m, n = _all_pairs_graph(feats.desc, feats.mask, cfg,
                                             cfg.matching.ratio_threshold)
         counts = np.zeros((N, N), np.int32)
@@ -158,11 +163,19 @@ def match_features(feats: SiftFeatures, cfg: StitchConfig):
         counts += counts.T
         keep = n > 0
         return pairs[keep], idx[keep], m[keep], counts, counts
-    nn_idx, nn_dist, best, accepted = mt.global_match_stack(
-        feats.desc, feats.mask, k=cfg.matching.k, method=cfg.matching.method,
-        ratio=cfg.matching.ratio_threshold, binary=_matcher_semantics(cfg)[1],
-        compute_dtype=cfg.tpu.compute_dtype, block=cfg.tpu.match_block,
-    )
+    binary = _matcher_semantics(cfg)[1]
+    if mesh is None:
+        nn_idx, nn_dist, best, accepted = mt.global_match_stack(
+            feats.desc, feats.mask, k=cfg.matching.k, method=cfg.matching.method,
+            ratio=cfg.matching.ratio_threshold, binary=binary,
+            compute_dtype=cfg.tpu.compute_dtype, block=cfg.tpu.match_block,
+        )
+    else:
+        ids = torch.arange(N, dtype=torch.int32, device=feats.desc.device).repeat_interleave(K)
+        nn_idx, nn_dist = sharded.sharded_global_knn(
+            feats.desc.reshape(N * K, D), feats.mask.reshape(N * K), ids, mesh, k=cfg.matching.k)
+        best, accepted = mt.global_ratio_test(nn_idx, nn_dist, ratio=cfg.matching.ratio_threshold,
+                                              binary=binary)
     F = N * K
     image_id = np.repeat(np.arange(N, dtype=np.int32), K)
     local_idx = np.tile(np.arange(K, dtype=np.int32), N)
@@ -217,23 +230,25 @@ def _acceptance(im) -> tuple:
 
 
 def verify_matches(feats: SiftFeatures, pairs, pair_idx, pair_mask, counts,
-                   cfg: StitchConfig, generator: torch.Generator) -> MatchGraph:
-    """RANSAC verification of the candidate pairs -> MatchGraph."""
+                   cfg: StitchConfig, generator: torch.Generator, mesh=None) -> MatchGraph:
+    """RANSAC verification of the candidate pairs -> MatchGraph. With a
+    `parallel.mesh.Mesh`, the pairs split across its ranks
+    (`sharded_verify_pairs`: a fixed budget, as the reference's)."""
     xy = feats.xy.cpu().numpy()
     src = xy[pairs[:, 0][:, None], pair_idx[:, :, 0]]
     dst = xy[pairs[:, 1][:, None], pair_idx[:, :, 1]]
     im = cfg.image_match
     alpha, beta = _acceptance(im)
-    out = rs.verify_pairs(
-        src, dst, np.asarray(pair_mask), threshold=im.max_distance,
-        model=im.transformation_type, method=im.method, batch=im.ransac_batch,
-        accept_alpha=alpha, accept_beta=beta, accept_small_min=im.accept_small_min,
-        accept_small_ratio=im.accept_small_ratio,
-        total=rs.num_trials(im.inliers_confidence, im.transformation_type, im.max_iter),
-        adaptive_first=im.adaptive_first_batch, confidence=im.inliers_confidence,
-        generator=generator,
-        device=feats.xy.device,
-    )
+    kw = dict(threshold=im.max_distance, model=im.transformation_type, method=im.method,
+              batch=im.ransac_batch, accept_alpha=alpha, accept_beta=beta,
+              accept_small_min=im.accept_small_min, accept_small_ratio=im.accept_small_ratio,
+              total=rs.num_trials(im.inliers_confidence, im.transformation_type, im.max_iter))
+    if mesh is None:
+        out = rs.verify_pairs(src, dst, np.asarray(pair_mask), generator=generator,
+                              adaptive_first=im.adaptive_first_batch,
+                              confidence=im.inliers_confidence, device=feats.xy.device, **kw)
+    else:
+        out = sharded.sharded_verify_pairs(src, dst, pair_mask, generator, mesh, **kw)
     return MatchGraph(pairs=pairs, pair_idx=pair_idx, pair_mask=pair_mask, H=out["H"],
                       inliers=out["inliers"], num_inliers=out["num_inliers"],
                       accepted=out["accepted"], counts=counts)
@@ -473,7 +488,20 @@ def stitch(image_set: ImageSet, cfg: StitchConfig = StitchConfig(), seed: int = 
     # recompute the same matcher in the pairwise second pass: skip that one;
     # the re-extracting second pass still applies (it changes the features)
     graph_is_pairwise = cfg.matching.match_pairwise or rescue_adopted
+    panoramas = stitch_components(image_set, graph, comps, feats, images, feathers, cfg, seed,
+                                  graph_is_pairwise, timer=timer, cache=cache, cache_key=key_ba)
+    return StitchResult(panoramas=panoramas, graph=graph, components=comps, features=feats)
 
+
+def stitch_components(image_set: ImageSet, graph: MatchGraph, comps: np.ndarray,
+                      feats: SiftFeatures, images, feathers, cfg: StitchConfig, seed: int,
+                      graph_is_pairwise: bool, timer=None, cache=None, cache_key=None,
+                      mesh=None) -> List[Dict]:
+    """Every component of two or more images through its second pass (when
+    it is not the whole set) and `stitch_component`: the panoramas' list.
+    `mesh` goes on to `stitch_component` (the multi-GPU path; no cache)."""
+    dev = images.device
+    n = image_set.n
     panoramas = []
     for label in np.unique(comps):
         members = np.nonzero(comps == label)[0]
@@ -489,20 +517,21 @@ def stitch(image_set: ImageSet, cfg: StitchConfig = StitchConfig(), seed: int = 
                     comp_set, comp_images, comp_feats, comp_graph = sp
                     result = stitch_component(
                         comp_set, comp_graph, comp_feats, np.arange(len(members)), cfg,
-                        comp_images, _feathers(comp_set.sizes, comp_images), timer=timer)
+                        comp_images, _feathers(comp_set.sizes, comp_images), timer=timer,
+                        mesh=mesh)
                     result["members"] = members
             if result is None and not graph_is_pairwise:
                 with _stage(timer, "second_pass"):
                     comp_graph = second_pass_matching(feats, members, graph, cfg,
                                                       derived_generator(dev, seed, 1))
                 result = stitch_component(image_set, comp_graph, feats, members, cfg, images,
-                                          feathers, timer=timer)
+                                          feathers, timer=timer, mesh=mesh)
         if result is None:
             result = stitch_component(image_set, graph, feats, members, cfg, images, feathers,
-                                      timer=timer, cache=cache, cache_key=key_ba,
-                                      cache_label=int(label))
+                                      timer=timer, cache=cache, cache_key=cache_key,
+                                      cache_label=int(label), mesh=mesh)
         panoramas.append(result)
-    return StitchResult(panoramas=panoramas, graph=graph, components=comps, features=feats)
+    return panoramas
 
 
 def second_pass_component(image_set: ImageSet, members: np.ndarray, cfg: StitchConfig,
@@ -624,12 +653,16 @@ def _save_ba(cache: StageCache, key: str, label, ba: Dict) -> None:
 
 def stitch_component(image_set: ImageSet, graph: MatchGraph, feats: SiftFeatures,
                      members: np.ndarray, cfg: StitchConfig, images, feathers,
-                     timer=None, cache=None, cache_key=None, cache_label=None) -> Dict:
+                     timer=None, cache=None, cache_key=None, cache_label=None,
+                     mesh=None) -> Dict:
     """Bundle-adjust and render one component: the rotational body
     (straighten, gains, every projection) or, for a planar scan
     (`force_planar_scan` or BA's no-rotation verdict), homography BA and
     planar compositing. With a StageCache, the bundle adjustment is resumed
-    from (or saved to) its record under (cache_key, cache_label)."""
+    from (or saved to) its record under (cache_key, cache_label). With a
+    `parallel.mesh.Mesh`, the rotational gain statistics and each
+    projection's tiles split across its ranks (`parallel/sharded.py`); the
+    bundle adjustment and the planar path run whole on every rank."""
     dev = images.device
     acc = graph.accepted
     ba = _load_ba(cache, cache_key, cache_label, dev) if cache is not None else None
@@ -695,17 +728,24 @@ def stitch_component(image_set: ImageSet, graph: MatchGraph, feats: SiftFeatures
     result["R_render"] = R
 
     with _stage(timer, "gain"):
-        gains = gain_stage.compute_gains_rotational(
-            images_m, feathers_m, R.astype(np.float32), K, sizes, cfg.gain, k1=k1)
+        if mesh is not None and cfg.gain.enabled:
+            Nij, sumC = sharded.sharded_gain_stats_imagespace(
+                images_m, feathers_m, sizes, R, K, mesh, stride=int(cfg.gain.grid_stride), k1=k1)
+            gains = gain_stage.solve_gains(Nij.cpu().numpy(), sumC.cpu().numpy(), cfg.gain)
+        else:
+            gains = gain_stage.compute_gains_rotational(
+                images_m, feathers_m, R.astype(np.float32), K, sizes, cfg.gain, k1=k1)
     projections: Dict[str, np.ndarray] = {}
     blend_mode = cfg.blend.mode
     if blend_mode == "none":
         blend_mode = f"none-{cfg.blend.compose_none_policy}"
     for mode in cfg.render.projections:
         canvas = render_stage.compute_canvas(R, K, sizes, mode, cfg.render, k1=k1, device=dev)
+        render = render_stage.render_rotational if mesh is None else functools.partial(
+            sharded.sharded_render_tiles, mesh=mesh)
         with _stage(timer, "render"):
-            pano, cover = render_stage.render_rotational(
-                images_m, feathers_m, R, K, canvas, gains=gains, blend_mode=blend_mode,
+            pano, cover = render(
+                images_m, feathers_m, R, K, canvas=canvas, gains=gains, blend_mode=blend_mode,
                 bands=cfg.blend.bands, tile=cfg.render.tile,
                 angle_power=cfg.render.angle_power, sizes=sizes,
                 interp=cfg.render.interpolation,

@@ -334,11 +334,26 @@ def render_rotational(images, feathers, R, K, canvas: dict, gains=None,
     C_arg = None if max_contributors is None else min(max_contributors, n)
     sel, sel_ok, origins = tile_contributors(canvas, R, K, sizes, (th, tw), C_arg, k1=k1,
                                              device=dev)
+    tiles, covs = render_tile_list(images, feathers, R, K, gains, k1, sel, sel_ok, origins, canvas,
+                                   tile, blend_mode, bands, angle_power, interp, tiles_per_batch)
+    return assemble_tiles(tiles, covs, origins, Hc, Wc)
+
+
+def render_tile_list(images, feathers, R, K, gains, k1, sel, sel_ok, origins, canvas: dict,
+                     tile: tuple, blend_mode: str, bands: int, angle_power: float, interp: str,
+                     tiles_per_batch: int = 8):
+    """Render the tiles of a list (sel (T, C), sel_ok (T, C), origins (T, 2)
+    numpy, as `tile_contributors` gives them) `tiles_per_batch` at a time:
+    (uint8 (T, th, tw, 3), covered (T, th, tw)) numpy. images (N, H, W, 3)
+    / feathers (N, H, W) tensors; R, K, gains, k1 numpy."""
+    dev = images.device
+    th, tw = tile
     images4 = torch.cat([images, feathers[..., None]], dim=-1)
     fine4 = samp.upsample2x_cubic(images4) if interp == "bicubic2x" else None
     R_d, K_d, g_d = _t(R, dev), _t(K, dev), _t(gains, dev)
     k1_d = None if k1 is None else _t(k1, dev)
-    tiles, covs = [], []
+    tiles = [np.zeros((0, th, tw, 3), np.uint8)]
+    covs = [np.zeros((0, th, tw), bool)]
     for s in range(0, len(sel), tiles_per_batch):
         e = s + tiles_per_batch
         t_u8, cov = _render_tiles(
@@ -348,7 +363,7 @@ def render_rotational(images, feathers, R, K, canvas: dict, gains=None,
         )
         tiles.append(t_u8.cpu().numpy())
         covs.append(cov.cpu().numpy())
-    return assemble_tiles(np.concatenate(tiles), np.concatenate(covs), origins, Hc, Wc)
+    return np.concatenate(tiles), np.concatenate(covs)
 
 
 def assemble_tiles(tiles: np.ndarray, covs: np.ndarray, origins: np.ndarray, Hc: int, Wc: int):

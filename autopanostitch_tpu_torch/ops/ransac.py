@@ -84,6 +84,29 @@ def sample_minimal_sets(mask, batch: int, min_pts: int, generator: torch.Generat
     return torch.topk(g + logp[:, None, :], min_pts, dim=-1).indices
 
 
+def draw_minimal_sets(pair_mask, model: str = "projective", batch: int = 512,
+                      total: int | None = None, generator: torch.Generator | None = None,
+                      device=None):
+    """The minimal sets of a fixed budget (no `adaptive_first`), drawn from
+    `generator` per memory-bounded group of pairs, per sub-batch: what
+    `verify_pairs` verifies with. Any slice of them verifies its pairs as
+    the whole call does, whatever the split
+    (`parallel.sharded.sharded_verify_pairs`). pair_mask (P, M) numpy;
+    returns (P, nsub, sub, min_pts) int64 on `device`."""
+    min_pts = model_min_pts(model)
+    msk = torch.as_tensor(np.asarray(pair_mask, bool), device=device)
+    P, M = msk.shape
+    total = batch if total is None else total
+    sub = min(batch, total)
+    nsub = max(1, -(-total // sub))
+    step = max(1, _MAX_ELEMS // (sub * M))
+    groups = [torch.zeros((0, nsub, sub, min_pts), dtype=torch.long, device=msk.device)]
+    for s in range(0, P, step):
+        groups.append(torch.stack([sample_minimal_sets(msk[s : s + step], sub, min_pts, generator)
+                                   for _ in range(nsub)], 1))
+    return torch.cat(groups)
+
+
 def _minimal_set_degenerate(pts, tol: float = 1.0):
     """(..., p, 2) -> (...) bool: coincident (p == 2) or nearly collinear
     (some point within `tol` px of the line through two others)."""
@@ -265,6 +288,8 @@ def verify_pairs(pair_src, pair_dst, pair_mask, threshold: float = 5.5,
             "n_pairs": int(P), "total": int(total), "first": int(total), "n_continued": 0,
             "m_matches": int(M), "trials_spent": float(P * total),
         }
+        if minimal_sets is None:
+            minimal_sets = draw_minimal_sets(pair_mask, model, batch, total, generator, src.device)
         res = run(None, min(batch, total), total, minimal_sets)
     else:
         first = int(adaptive_first)

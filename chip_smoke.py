@@ -9,7 +9,8 @@
 Phases, each printing its own lines:
   1. environment: the card's name and power limit (nvidia-smi), torch, CUDA;
   2. build the CUDA kernels from `autopanostitch_tpu_torch/csrc/`;
-  3. B1 (pooled exact k-NN) against its plain version at the slice's shapes;
+  3. B1 (pooled exact k-NN) against its plain version at the slice's shapes,
+     and at phase 11's: each half of the queries sliced from the pool;
   3b. B1's pair-list mode against its plain version at the pairwise
      rescue's shape (25 images x 2048 slots, all 300 pairs, both ways);
   3c. B1 on {0,1} descriptors (the corner detectors' 256 bits): pooled
@@ -76,9 +77,19 @@ Phases, each printing its own lines:
   10. the command line, `python -m autopanostitch_tpu_torch.cli` on a
      folder of a 12-view ring, twice with one `--cache`: the second run
      resumes and writes the same files and panorama; then a stitch with
-     `show_panorama_imgs_nums` adds the annotated panorama.
-Phases 5-10 each count the kernels' launches from 0 and fail if a kernel of
-the path never launched. Then a JSON line of the kernels, the nvidia-smi
+     `show_panorama_imgs_nums` adds the annotated panorama;
+  11. the multi-GPU path, `api.stitch_multichip`, on this one card: 11a
+     phase 9's ring on an NCCL mesh of world size 1 in this process; 11b the
+     same on two ranks spawned over gloo that share the card (each prints
+     its stage split and the card, and writes its result for this process);
+     11c phase 6's folder at world size 1. Phase 9's and phase 6's gates,
+     and 11a and each rank of 11b held to phase 9's single-device result
+     and to each other with tests/test_parallel.py's tolerances (the same
+     members, pairs and accepted pairs, f within 5e-4, panoramas within 1
+     LSB on average); a failing rank fails the phase. The rehearsal runs
+     11a and 11c over gloo on the CPU and 11b as two CPU ranks.
+Phases 5-11 each count the kernels' launches from 0 and fail if a kernel of
+the path never launched (in 11b on either rank). Then a JSON line of the kernels, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero without that line. This script imports nothing of JAX.
 
@@ -319,6 +330,24 @@ def phase_b1(dev, F: int, n_img: int):
         rec[label] = b1_record(f"{label}: F={F} D=128", 2.0 * F * F * 128, nbytes, err, bad, times)
         if bad or not err <= 1e-4:
             raise AssertionError(f"B1 {label} disagrees with its plain version")
+    # the multi-GPU path's shape (phase 11): a rank's half of the queries,
+    # sliced from the pool (the first half shares the pool's address)
+    half = F // 2
+    for r, (lo, hi) in enumerate(((0, half), (half, F))):
+        sl = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+        args = (desc[lo:hi], qid[lo:hi], desc, qid, 4, sl)
+        out_k = K.knn(*args)
+        out_p = K.knn_plain(*(args[:4] + (5, sl)))
+        sync(dev)
+        err, bad = knn_agreement(out_k[0], out_k[1], out_p[0], out_p[1])
+        ms = time_ms(lambda: K.knn(*args), dev)
+        log(f"B1 k4 rank {r} of 2: queries {lo}:{hi} of the pool F={F}: max|dist diff|={err:.3e} "
+            f"idx mismatches outside ties={bad}, kernel {ms:.3f} ms")
+        if bad or not err <= 1e-4:
+            raise AssertionError(f"B1 on rank {r}'s slice of the queries disagrees with its plain "
+                                 "version")
+        rec["k4"][f"rank{r}_of_2_ms"] = ms
+        rec["k4"]["err"] = max(rec["k4"]["err"], err)
     return rec
 
 
@@ -1014,7 +1043,37 @@ def phase_pano100(dev, n: int, f_true: float, w: int, h: int, env_hw, gate):
     log(f"pano100: PSNR {psnr:.3f} dB, {psnr - PANO100_TPU_PSNR:+.3f} dB from the JAX package's "
         f"TPU v5e record {PANO100_TPU_PSNR} dB (history, not a target)")
     require_launches("pano100", counts, ("knn", "orient_hist", "descriptor"), dev)
-    return counts
+    return counts, stitch_record(res)
+
+
+def stitch_record(res) -> dict:
+    """What phase 11 holds a stitch of one panorama to: its graph, members,
+    focals and spherical panorama, numpy."""
+    pr = res.panoramas[0]
+    return {"pairs": np.asarray(res.graph.pairs), "accepted": np.asarray(res.graph.accepted),
+            "H": np.asarray(res.graph.H), "members": np.asarray(pr["members"]),
+            "f": _np(pr["ba"]["cameras"].f), "pano": pr["projections"]["spherical"]}
+
+
+def same_stitch(label: str, got: dict, ref: dict, ref_label: str) -> bool:
+    """tests/test_parallel.py's end-to-end tolerances: the same members,
+    pairs and accepted pairs, f within 5e-4 relative, the panoramas of one
+    shape and within 1 uint8 LSB on average. Prints the comparison; returns
+    whether the two are bit-identical (graph, f and panorama)."""
+    shape_ok = got["pano"].shape == ref["pano"].shape
+    mad = (float(np.abs(got["pano"].astype(np.int16) - ref["pano"].astype(np.int16)).mean())
+           if shape_ok else float("inf"))
+    f_rel = float(np.abs(got["f"] / ref["f"] - 1).max()) if got["f"].shape == ref["f"].shape \
+        else float("inf")
+    same = {k: got[k].shape == ref[k].shape and bool((got[k] == ref[k]).all())
+            for k in ("members", "pairs", "accepted", "H", "f", "pano")}
+    log(f"{label} vs {ref_label}: members/pairs/accepted equal {same['members']}/{same['pairs']}/"
+        f"{same['accepted']}, max |f rel diff| {f_rel:.3e} (gate 5e-4), panorama mean |diff| "
+        f"{mad:.4f} LSB (gate 1), bit-identical {all(same.values())}")
+    if not (same["members"] and same["pairs"] and same["accepted"] and f_rel <= 5e-4
+            and mad < 1.0):
+        raise AssertionError(f"{label} differs from {ref_label}")
+    return all(same.values())
 
 
 def sync(dev) -> None:
@@ -1091,16 +1150,20 @@ def features_split(images, sizes, dev, reps: int = 3) -> dict:
                 rest=med["total"] - med["orientation"] - med["descriptor"], launches=counts)
 
 
-def run_stitch(label: str, iset, cfg, dev):
-    """`api.stitch` with the kernels' launch counts taken from 0; prints the
-    stage times and counts. Returns (result, counts)."""
+def run_stitch(label: str, iset, cfg, dev, mesh=None):
+    """`api.stitch` (with a mesh `api.stitch_multichip`) with the kernels'
+    launch counts taken from 0; prints the stage times and counts. Returns
+    (result, counts)."""
     from autopanostitch_tpu_torch import api, kernels
     from autopanostitch_tpu_torch.models.pipeline import StageTimer
 
     timer = StageTimer(dev)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    res = api.stitch(iset, cfg, seed=0, device=str(dev), timer=timer)
+    if mesh is None:
+        res = api.stitch(iset, cfg, seed=0, device=str(dev), timer=timer)
+    else:
+        res = api.stitch_multichip(iset, cfg, mesh=mesh, seed=0, timer=timer)
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     log(f"{label}: stage wall s " + json.dumps({k: round(v, 4) for k, v in timer.report().items()})
@@ -1115,12 +1178,13 @@ def require_launches(label: str, counts: dict, names, dev) -> None:
 
 
 def phase_multipano(dev, n: int, f_true: float, w: int, h: int, env_hw, limit: int,
-                    psnr_min: float, compute_dtype: str = "float32"):
+                    psnr_min: float, compute_dtype: str = "float32", mesh=None):
     """Phase 6 (6b: with compute_dtype="bfloat16", the pair list on B1's
-    bf16 instance)."""
+    bf16 instance; 11c: through `stitch_multichip` on `mesh`)."""
     from autopanostitch_tpu_torch import config
 
     label = "multipano" if compute_dtype == "float32" else "multipano_bf16"
+    label += "" if mesh is None else "_multichip"
     t0 = time.perf_counter()
     iset, truth = multipano_scene(n, f_true, w, h, env_hw, limit)
     log(f"{label}: scene 2 x {n} views + 1 distractor, {w}x{h} ingested at "
@@ -1128,7 +1192,7 @@ def phase_multipano(dev, n: int, f_true: float, w: int, h: int, env_hw, limit: i
     modes = ("spherical", "cylindrical")
     cfg = config_with(config, {"render": {"projections": modes},
                                "tpu": {"compute_dtype": compute_dtype}})
-    res, counts = run_stitch(label, iset, cfg, dev)
+    res, counts = run_stitch(label, iset, cfg, dev, mesh)
     got = sorted(sorted(np.asarray(p["members"]).tolist()) for p in res.panoramas)
     log(f"{label}: components {np.asarray(res.components).tolist()}, panoramas {got}, "
         f"accepted pairs {int(np.asarray(res.graph.accepted).sum())}/{len(res.graph.pairs)}")
@@ -1245,6 +1309,95 @@ def phase_detectors(dev, n: int, f_true: float, w: int, h: int, env_hw, cutoff: 
     return out
 
 
+def multichip_pano100(label: str, dev, mesh, pano100, gate) -> tuple:
+    """The pano100 ring through `stitch_multichip` on `mesh` with phase 9's
+    gates (one panorama of n, focal error < 1 %, PSNR >= the JAX package's
+    less 3 dB). Returns (record as `stitch_record`, launch counts)."""
+    from autopanostitch_tpu_torch import config
+
+    n, f_true, w, h, env_hw = pano100
+    iset, env, Rs = ring_scene(n, f_true, w, h, env_hw)
+    res, counts = run_stitch(label, iset, config_with(config, PANO100), dev, mesh)
+    psnr_min = max(40.0, gate["psnr"] - 3.0) if gate else 35.0
+    ring_gates(label, res, env, Rs, n, f_true, psnr_min, gate)
+    return stitch_record(res), counts
+
+
+def multichip_rank(rank: int, world: int, store: str, out_dir: str, dev_type: str, pano100,
+                   gate) -> None:
+    """One rank of phase 11b (spawned): the pano100 ring through
+    `stitch_multichip` on a gloo mesh of `world` ranks that share cuda:0 (the
+    CPU in the rehearsal). Prints its stage split, launch counts and the
+    card; writes its record and counts to out_dir/rank{rank}.npz."""
+    import torch
+    import torch.distributed as dist
+
+    from autopanostitch_tpu_torch.parallel import mesh as pmesh
+
+    if dev_type == "cpu":
+        torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        dev = torch.device("cuda", 0) if dev_type == "cuda" else torch.device("cpu")
+        mesh = pmesh.make_mesh(dev, backend="gloo")
+        label = f"multichip_gloo{world}_rank{rank}"
+        log(f"{label}: {nvidia_smi() if dev_type == 'cuda' else 'the CPU'}, mesh rank {mesh.rank} "
+            f"of {mesh.size} on {mesh.device} over {mesh.backend}")
+        rec, counts = multichip_pano100(label, dev, mesh, pano100, gate)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), counts=json.dumps(counts), **rec)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_multichip(dev, pano100, gate, single: dict, multi):
+    """Phase 11, `stitch_multichip` (the multi-GPU path) on one card.
+    11a: pano100 on an NCCL mesh of world size 1 in this process (gloo on
+    the CPU); 11b: the same on two ranks spawned over gloo, sharing the
+    card; 11c: phase 6's folder at world size 1 (the second pass and two
+    projections through the sharded render). Each run gets phase 9's or
+    phase 6's gates; 11a and each rank of 11b are held to phase 9's
+    single-device result and to each other with tests/test_parallel.py's
+    tolerances (`same_stitch`); B1 and B2 must launch in every run and on
+    every rank. Returns the runs' launch counts (11a, 11c, each rank)."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from autopanostitch_tpu_torch.parallel import mesh as pmesh
+
+    need = ("knn", "orient_hist", "descriptor")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory(prefix="apst_mesh_") as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/store1", rank=0, world_size=1)
+        try:
+            mesh = pmesh.make_mesh(dev, backend=backend)
+            log(f"multichip: mesh rank {mesh.rank} of {mesh.size} on {mesh.device} over "
+                f"{mesh.backend}")
+            rec_a, counts_a = multichip_pano100(f"multichip_{backend}1", dev, mesh, pano100, gate)
+            same_stitch(f"multichip_{backend}1", rec_a, single, "pano100 (phase 9)")
+            require_launches(f"multichip_{backend}1", counts_a, need, dev)
+            counts_c = phase_multipano(dev, *multi, mesh=mesh)
+        finally:
+            dist.destroy_process_group()
+        t0 = time.perf_counter()
+        mp.spawn(multichip_rank, args=(2, f"{tmp}/store2", tmp, dev.type, pano100, gate),
+                 nprocs=2, join=True)
+        log(f"multichip_gloo2: both ranks done in {time.perf_counter() - t0:.1f} s of wall time "
+            "(spawn, start-up and stitch)")
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(2)]
+    out = [counts_a, counts_c]
+    for r, rec in enumerate(ranks):
+        counts = json.loads(str(rec.pop("counts")))
+        label = f"multichip_gloo2_rank{r}"
+        same_stitch(label, rec, single, "pano100 (phase 9)")
+        same_stitch(label, rec, rec_a, f"multichip_{backend}1")
+        require_launches(label, counts, need, dev)
+        out.append(counts)
+    same_stitch("multichip_gloo2_rank1", ranks[1], ranks[0], "multichip_gloo2_rank0")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1321,8 +1474,15 @@ def main() -> int:
     runs += phase_planar_models(dev, *sizes["planar"])
     det = phase_detectors(dev, *sizes["detectors"])
     runs += list(det.values())
-    runs += [phase_pano100(dev, *sizes["pano100"]), phase_cli(dev, *sizes["cli"])]
+    pano100_counts, pano100_rec = phase_pano100(dev, *sizes["pano100"])
+    runs += [pano100_counts, phase_cli(dev, *sizes["cli"])]
+    multichip = phase_multichip(dev, sizes["pano100"][:5], sizes["pano100"][5], pano100_rec,
+                                sizes["multi"])
+    runs += multichip
     counts = {k: sum(c[k] for c in runs) for k in runs[0]}
+    mc_counts = {k: sum(c[k] for c in multichip) for k in runs[0]}
+    log(f"multichip: kernel launches of phase 11 (11a, 11c and both ranks of 11b) "
+        f"{json.dumps(mc_counts)}")
     orb = det["orb_mlesac_adaptive"]
     doh_runs = [det["surf"], det["kaze"]]
     if "jax" in sys.modules:
@@ -1334,12 +1494,15 @@ def main() -> int:
         {"name": "pooled_knn", "route": "cuda", "source": "autopanostitch_tpu_torch/csrc/knn.cu",
          "replaces": "autopanostitch_tpu/ops/pallas/match_kernel.py:129",
          "launches": counts["knn"] - counts["knn_bf16"],
+         "multichip_launches": mc_counts["knn"] - mc_counts["knn_bf16"],
          "max_abs_err": max(b1["k4"]["err"], b1["k2_self"]["err"]),
          **{k: b1["k4"][k] for k in keys}, "bound_unit": b1_unit, "mm_ms": b1["k4"]["mm_ms"],
-         "k2_self_ms": b1["k2_self"]["ms"]},
+         "k2_self_ms": b1["k2_self"]["ms"], "rank0_of_2_ms": b1["k4"]["rank0_of_2_ms"],
+         "rank1_of_2_ms": b1["k4"]["rank1_of_2_ms"]},
         {"name": "pair_knn", "route": "cuda", "source": "autopanostitch_tpu_torch/csrc/knn.cu",
          "replaces": "autopanostitch_tpu/ops/pallas/match_kernel.py:129",
          "launches": counts["knn_pairs"] - counts["knn_pairs_bf16"], "max_abs_err": b1p["err"],
+         "multichip_launches": mc_counts["knn_pairs"] - mc_counts["knn_pairs_bf16"],
          **{k: b1p[k] for k in keys}, "bound_unit": b1_unit, "mm_ms": b1p["mm_ms"]},
         {"name": "window_gather", "route": "cuda",
          "source": "autopanostitch_tpu_torch/csrc/window_gather.cu",
@@ -1352,6 +1515,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": "autopanostitch_tpu_torch/csrc/sift_window.cu",
          "replaces": "autopanostitch_tpu/ops/pallas/window_gather.py:78",
          "launches": counts[name], "max_abs_err": b2f[name]["err"],
+         "multichip_launches": mc_counts[name],
          **{k: b2f[name][k] for k in keys + ("unfused_ms", "K", "win", "copy",
                                              "window_union_bytes")},
          "odd_w_coarse": b2f[name]["odd_w_coarse"],

@@ -388,6 +388,25 @@ def test_knn_kernel_ragged_sizes_on_card(Fq, Ft):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lo,hi", [(0, 700), (700, 1500), (300, 1500)])
+def test_knn_kernel_queries_sliced_from_the_pool_on_card(lo, hi):
+    """Queries that are a slice of the target pool (one address when the
+    slice starts at row 0), as a rank's share of the pooled kNN: the
+    targets keep their own norms."""
+    dev = _cuda()
+    rng = np.random.default_rng(lo + hi)
+    d = rng.standard_normal((1500, 128)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d = torch.as_tensor(d, device=dev)
+    ids = torch.as_tensor(np.repeat(np.arange(5, dtype=np.int32), 300), device=dev)
+    self_idx = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+    idx_k, d_k = tknn.knn(d[lo:hi], ids[lo:hi], d, ids, 4, self_idx=self_idx)
+    idx_p, d_p = tknn.knn_plain(d[lo:hi], ids[lo:hi], d, ids, 5, self_idx=self_idx)
+    torch.cuda.synchronize()
+    _assert_knn_agrees(idx_k, d_k, idx_p, d_p)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k,with_self", [(4, False), (2, True)])
 def test_knn_kernel_bit_equal_on_integer_descriptors_on_card(k, with_self):
     """Pooled mode on one set with same-image, invalid and self masks: every

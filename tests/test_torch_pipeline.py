@@ -168,7 +168,10 @@ def test_port_imports_no_jax():
             "autopanostitch_tpu_torch.models.straighten", "autopanostitch_tpu_torch.cli",
             "autopanostitch_tpu_torch.models.annotate", "autopanostitch_tpu_torch.utils.cache",
             "autopanostitch_tpu_torch.utils.timing", "autopanostitch_tpu_torch.utils.threefry",
-            "autopanostitch_tpu_torch.native"} <= set(mods)
+            "autopanostitch_tpu_torch.native", "autopanostitch_tpu_torch.parallel.mesh",
+            "autopanostitch_tpu_torch.parallel.sharded", "autopanostitch_tpu_torch.parallel.pipeline",
+            "autopanostitch_tpu_torch.utils.perturb", "autopanostitch_tpu_torch.utils.real_data",
+            "autopanostitch_tpu_torch.utils.flops"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['autopanostitch_tpu'] = None\n"
             "sys.modules['jax'] = None\n"
