@@ -1,5 +1,6 @@
 // Exact k-nearest-neighbour search (squared L2) for descriptor matching, in
-// two modes that share one tile loop.
+// two modes, each with a 3xTF32 tile loop (knn.cuh) and a bf16 one
+// (knn_bf16.cuh).
 //
 // Replaces the TPU kernel `two_nn_pallas` (autopanostitch_tpu/ops/pallas/
 // match_kernel.py:129, body `_kernel` :45) and the XLA bodies it stood in
@@ -112,18 +113,71 @@
 //   exact (lo = 0) and every distance an integer, so ties keep the exact
 //   (distance, index) order of the plain version. Those instances are
 //   built in knn_wide.cu; the tile loop is in knn.cuh.
-// - The bf16 instances (knn_bf16.cu, `compute_dtype="bfloat16"`, where the
-//   reference rounds both operands of q.t to bf16 and sums in float32):
-//   each operand rounded once (no hi/lo split), one wgmma.m64n64k16 bf16 a
-//   k-step, the expansion-form distance from float32 norms, clamped at 0,
-//   and no refine (direct float32 differences would give the float32
-//   answer, which the reference's bf16 run does not). A 128-byte swizzled
-//   row holds 64 bf16 where it holds 32 floats: each thread rounds the raw
-//   float32 chunks it copied into the stage's second part, laid out as
-//   rows of 64 bf16, so the descriptors step 32 bytes a k-step as for TF32.
-//   One product a k-step where 3xTF32 takes three, at twice TF32's rate.
+// - The bf16 instances (knn_bf16.cuh, built in knn_bf16.cu), for
+//   `compute_dtype="bfloat16"`, where the reference rounds both operands of
+//   q.t to bf16 and sums in float32, and for every binary width: one bf16
+//   product a k-step (float32 sums, k-steps in ascending column order), the
+//   expansion-form distance fmaf(-2, acc, qn + tn) from float32 norms,
+//   clamped at 0, and no refine (direct float32 differences would give the
+//   float32 answer, which the reference's bf16 run does not). Their bound
+//   is one product at 989 TFLOP/s (0.43 ms pooled at F = 40,960, D = 128;
+//   0.65 ms for the pair list). Beside it stands the epilogue: 4 CUDA-core
+//   instructions a (query, target) pair (the add, the fma, the compare,
+//   the candidate bit), 1.7e9 pairs pooled, 0.20 ms at the card's issue
+//   rate. The design:
+//   - Operands are rounded once, in device memory: a prologue
+//     (row_prep_bf16) writes each row's float32 norm and the row rounded to
+//     bf16, zero-padded to bf16_width(D) (whole 128-byte rows), into the
+//     entry point's norm scratch. Blocks then read bf16, half the bytes of
+//     float32, and round nothing. Queries share the pool's copy only when
+//     they ARE the pool (the rule of the norms above).
+//   - TMA from a producer warp: warp 8, of a third warpgroup that setmaxnreg
+//     leaves 40 registers a thread (the consumers get 232), has
+//     cp.async.bulk.tensor copy each tile's bf16 rows into a ring stage,
+//     128-byte swizzled as wgmma reads them, and 4-byte cp.async copy its
+//     norms and ids (any alignment; their latency off the producer's path).
+//     Rows past the targets read as zeros; the pair list's tensor map is 3-D
+//     (W, Kc, N), so a box never runs into the next image. Each stage has a
+//     full mbarrier (expect-tx, and the producer lanes' copies) and an empty
+//     one; 5 to 8 stages of 128 targets (D <= 128) or 64 (wider).
+//   - Pooled, the cluster shares target tiles: clusters of 4 blocks, 2
+//     query blocks x 2 target halves. The two blocks of a half stream the
+//     same tiles, each copying half of each tile's rows to both
+//     (.multicast::cluster), so a tile leaves L2 once for two query blocks;
+//     a stage is refilled only when the consumer warps of both blocks have
+//     released it (remote mbarrier arrives, at the block's scope: with a
+//     cluster-scope release the pooled case took 2.74 ms, not 1.81). The
+//     halves' lists
+//     merge through distributed shared memory, as the 3xTF32 loop's do. 640
+//     blocks at F = 40,960, one an SM (~170 KB of shared memory at D = 128):
+//     4.8 waves on 132 SMs. The pair list runs one block a (pair, direction,
+//     query block), no cluster: an image's targets are a few hundred KB of
+//     L2.
+//   - The epilogue overlaps the products by ping-pong: the two consumer
+//     warpgroups (64 query rows each) take turns issuing their tile's
+//     wgmma (named barriers), so one filters while the other's products
+//     run. Each closes its wgmma stage (wait_group 0) before touching the
+//     accumulators: two accumulator sets a warpgroup, with tile i + 1's
+//     products in flight while tile i is read, made ptxas serialise every
+//     wgmma of the kernel (warnings C7514/C7515).
+//   - The epilogue filters in two passes. The first, branch-free over every
+//     pair, marks the pairs under the quad's bound: the 4 lanes of a quad
+//     keep lists of the same row over different columns, and together hold
+//     K entries no worse than the K-th smallest of their 4 K entries (K = 2,
+//     4; the largest lane's (K / 4)-th for K = 8, 16), so a candidate at or
+//     beyond it cannot reach the final K. The second runs only for the
+//     groups of 4 pairs where a lane of the warp has a candidate, with a
+//     branch-free push. Tiles are filtered in ascending order, so push's
+//     ascending-index assumption and the strict (distance, index) order
+//     hold. A candidate costs a whole warp a group; that second pass, not
+//     the products, still holds the kernel (tools/knn_bf16_probe.py on an
+//     H100: without any epilogue the pooled case takes 0.72 ms, with the
+//     first pass only 1.13 ms, whole 1.81 ms).
+//   - One pass at every width: a warp loads its query fragments for all of
+//     D once (D / 4 registers: 64 at D = 256). A tile is wgmma.m64n128k16
+//     where a ring of such stages fits (D <= 128), else m64n64k16.
 
-#include "knn.cuh"
+#include "knn_bf16.cuh"
 
 namespace b1 {
 namespace {
@@ -141,6 +195,31 @@ __global__ void row_norms(const float* __restrict__ x, int F, int D, float* __re
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) out[row] = s;
+}
+
+// The prologue of the bf16 instances, row_norms' bf16 form: one warp per
+// row writes |x|^2, summed as row_norms sums it, and the row rounded to bf16
+// once (to nearest even, as the reference's astype(bfloat16)) into xb, rows
+// of W, zero from D on.
+__global__ void row_prep_bf16(const float* __restrict__ x, int F, int D, int W,
+                              float* __restrict__ out, __nv_bfloat16* __restrict__ xb) {
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= F) return;
+  float s = 0.f;
+  for (int d = lane; d < W; d += 32) {
+    const float v = d < D ? x[(size_t)row * D + d] : 0.f;
+    if (d < D) s = fmaf(v, v, s);
+    xb[(size_t)row * W + d] = __float2bfloat16_rn(v);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) out[row] = s;
+}
+
+// The bf16 rows of a scratch laid out as bf16_rows_at says.
+__nv_bfloat16* bf16_rows(float* scratch, long long F) {
+  return reinterpret_cast<__nv_bfloat16*>(scratch + bf16_rows_at(F));
 }
 
 // Rows of the pooled output: query row r, target row idx.
@@ -238,16 +317,15 @@ cudaError_t launch_refine(const Rows& rows, long long n_rows, int D, int k, int*
   return cudaGetLastError();
 }
 
-// The instance of (K, D, operand type): 3xTF32 up to DCHUNK here, above it
-// in knn_wide.cu, bf16 in knn_bf16.cu.
+// The 3xTF32 instance of (K, D): up to DCHUNK here, above it in
+// knn_wide.cu.
 template <class Args, class... Rest>
-cudaError_t launch_any(bool bf16, int K, int D, const Args& a, const Rest&... rest) {
-  if (bf16) return launch_bf16(K, D, a, rest...);
+cudaError_t launch_any(int K, int D, const Args& a, const Rest&... rest) {
   if (D > DCHUNK) return launch_wide(K, D, a, rest...);
   if constexpr (sizeof...(Rest) == 1)
-    return launch_pooled<false, 32, 64, 96, 128>(K, D, a, rest...);
+    return launch_pooled<32, 64, 96, 128>(K, D, a, rest...);
   else
-    return launch_pairs<false, 32, 64, 96, 128>(K, D, a, rest...);
+    return launch_pairs<32, 64, 96, 128>(K, D, a, rest...);
 }
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
@@ -259,7 +337,8 @@ using namespace b1;
 
 // k is the instance's K (2, 4, 8 or 16): out (Fq, k). bf16 != 0 runs the
 // bf16-operand instance, whose expansion-form distances are the result
-// (no refine).
+// (no refine); qn and tn are then scratches of Fq and Ft rows laid out as
+// bf16_rows_at says (knn_bf16.cuh), tn unused when q and t are one set.
 extern "C" int apst_knn(const float* q, const int* qid, const int* qself, int Fq,
                         const float* t, const int* tid, int Ft, int D, int k, int bf16,
                         float* qn, float* tn, int* out_idx, float* out_dist, void* stream) {
@@ -272,17 +351,27 @@ extern "C" int apst_knn(const float* q, const int* qid, const int* qself, int Fq
   // that are a prefix of the targets (one address, Fq < Ft, as a rank's
   // slice of the pool) need the targets' own norms
   const bool same = t == q && Ft == Fq;
+  if (bf16) {
+    const int W = bf16_width(D);
+    __nv_bfloat16* qb = bf16_rows(qn, Fq);
+    __nv_bfloat16* tb = same ? qb : bf16_rows(tn, Ft);
+    row_prep_bf16<<<(Fq + 7) / 8, 256, 0, s>>>(q, Fq, D, W, qn, qb);
+    if (!same) row_prep_bf16<<<(Ft + 7) / 8, 256, 0, s>>>(t, Ft, D, W, tn, tb);
+    const Bf16Pooled a{qb, qid, qself, qn, Fq, tb, tid, same ? qn : tn, Ft, out_idx, out_dist};
+    return (int)launch_bf16(k, D, a, s);
+  }
   row_norms<<<(Fq + 7) / 8, 256, 0, s>>>(q, Fq, D, qn);
   if (!same) row_norms<<<(Ft + 7) / 8, 256, 0, s>>>(t, Ft, D, tn);
   const PooledArgs a{q, qid, qself, qn, Fq, t, tid, same ? qn : tn, Ft, out_idx, out_dist};
-  const cudaError_t err = launch_any(bf16 != 0, k, D, a, s);
-  if (err != cudaSuccess || bf16) return (int)err;
+  const cudaError_t err = launch_any(k, D, a, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)launch_refine(PooledRows{q, t, D}, Fq, D, k, out_idx, out_dist, s);
 }
 
 // desc (N * Kc, D) row-major, tag (N * Kc) with -2 = invalid slot, pairs
-// (P, 2) image indices < N; norms (N * Kc) scratch; k = 2, out (P, 2, Kc,
-// k); bf16 as in apst_knn.
+// (P, 2) image indices < N; norms (N * Kc) scratch, with bf16 set laid out
+// as bf16_rows_at says for N * Kc rows; k = 2, out (P, 2, Kc, k); bf16 as in
+// apst_knn.
 extern "C" int apst_knn_pairs(const float* desc, const int* tag, int N, int Kc, int D,
                               const int* pairs, int P, int k, int bf16, float* norms,
                               int* out_idx, float* out_dist, void* stream) {
@@ -291,10 +380,15 @@ extern "C" int apst_knn_pairs(const float* desc, const int* tag, int N, int Kc, 
     return (int)cudaErrorInvalidValue;
   if (misaligned(desc)) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    __nv_bfloat16* db = bf16_rows(norms, (long long)N * Kc);
+    row_prep_bf16<<<(N * Kc + 7) / 8, 256, 0, s>>>(desc, N * Kc, D, bf16_width(D), norms, db);
+    return (int)launch_bf16(k, D, Bf16Pairs{db, tag, norms, N, Kc, pairs, out_idx, out_dist}, P, s);
+  }
   row_norms<<<(N * Kc + 7) / 8, 256, 0, s>>>(desc, N * Kc, D, norms);
   const PairArgs a{desc, tag, norms, Kc, pairs, out_idx, out_dist};
-  const cudaError_t err = launch_any(bf16 != 0, k, D, a, P, s);
-  if (err != cudaSuccess || bf16) return (int)err;
+  const cudaError_t err = launch_any(k, D, a, P, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)launch_refine(PairRows{desc, pairs, Kc, D}, 2LL * P * Kc, D, k, out_idx, out_dist,
                             s);
 }

@@ -1,13 +1,12 @@
-// B1, exact k-NN (squared L2): the tile loop, its kernels and their
-// launchers, shared by knn.cu (the C entry points and the 3xTF32 instances
-// of widths up to 128), knn_wide.cu (3xTF32, widths 160 to 256) and
-// knn_bf16.cu (the bf16-operand instances of every width). The design is
-// described at the head of knn.cu.
+// B1, exact k-NN (squared L2): the 3xTF32 tile loop, its kernels and their
+// launchers, shared by knn.cu (the C entry points and the instances of
+// widths up to 128) and knn_wide.cu (widths 160 to 256); the helpers that
+// the bf16 instances (knn_bf16.cuh) share with it. The design is described
+// at the head of knn.cu.
 
 #pragma once
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
@@ -26,9 +25,9 @@ constexpr int DCHUNK = 128;  // widest slice of a descriptor a ring stage holds
 constexpr float BIG = 1e18f;
 
 // The widest chunk of a descriptor an instance holds: 128 columns, or 64
-// for the 3xTF32 instance of K = 16, whose longer lists need the registers
-// that the hi/lo query fragments of 128 columns would take.
-__host__ __device__ constexpr int dchunk(int K, bool BF) { return K > 8 && !BF ? 64 : DCHUNK; }
+// for the instance of K = 16, whose longer lists need the registers that the
+// hi/lo query fragments of 128 columns would take.
+__host__ __device__ constexpr int dchunk(int K) { return K > 8 ? 64 : DCHUNK; }
 
 // A descriptor wider than DCH passes the ring in NH chunks of DC columns
 // (DC a multiple of 32, columns past D zero-filled): with DCH = 128, 160 and
@@ -39,8 +38,8 @@ struct Chunks {
   static constexpr int DC = 32 * ((D + 32 * NH - 1) / (32 * NH));
 };
 
-// the target ring (per stage two parts of BT x DC floats: 3xTF32's hi and
-// lo, or the raw float32 copy and its bf16 rounding), its ids and norms,
+// the target ring (per stage two parts of BT x DC floats: hi and lo), its
+// ids and norms,
 // its full / empty barriers, and slack to align the ring to 1024 bytes for
 // the swizzle
 constexpr size_t smem_bytes(int DC) {
@@ -132,14 +131,6 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// Two float32 values rounded to bf16 (to nearest even, as the reference's
-// astype(bfloat16) rounds), packed as one 32-bit operand register: the
-// lower column in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // wgmma shared-memory descriptor of a K-major operand in 128-byte swizzled
 // rows: start address, leading offset 1 (unused), 8-row groups 1024 bytes
 // apart, swizzle mode 128B.
@@ -158,26 +149,6 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
-      : "memory");
-}
-
-// d += a b over a 64 x 64 x 16 bf16 tile of a warpgroup, float32 sums: a
-// from registers (this warp's 16 rows, two bf16 a register), b (64 targets
-// x 16) from shared memory, K-major (trans-b 0); scale_d = 0 starts from zero.
-__device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
-                                           int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -209,25 +180,21 @@ struct PairRule {
 // (128-byte swizzled, K-major), a chunk of DC columns an item, each thread
 // splits the chunks it copied into hi and lo in place, and each warpgroup
 // runs 3 x DC / 8 wgmma.m64n64k8 on the stage while it splits the next
-// one. With BF, the operands are rounded to bf16 once instead (queries in
-// registers, each thread's target chunks into the stage's second part,
-// 128-byte swizzled rows of 64 bf16) and each warpgroup runs DC / 16
-// wgmma.m64n64k16 bf16 with float32 sums. The accumulators carry over the
-// NH items of a tile; the epilogue runs after its last. With SPLIT = 2 the
-// block is one of a cluster of two that share the query block and halve
-// the targets. Needs smem_bytes(Chunks<D, dchunk(K, BF)>::DC).
-template <int K, int D, int SPLIT, bool BF, class Rule>
+// one. The accumulators carry over the NH items of a tile; the epilogue
+// runs after its last. With SPLIT = 2 the block is one of a cluster of two
+// that share the query block and halve the targets. Needs
+// smem_bytes(Chunks<D, dchunk(K)>::DC).
+template <int K, int D, int SPLIT, class Rule>
 __device__ __forceinline__ void knn_tile(
     const float* __restrict__ q, const float* __restrict__ qn, int Fq, int q0, Rule rule,
     const float* __restrict__ t, const int* __restrict__ tid, const float* __restrict__ tn,
     int Ft, int* __restrict__ out_idx, float* __restrict__ out_dist) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
-  using Ch = Chunks<D, dchunk(K, BF)>;
+  using Ch = Chunks<D, dchunk(K)>;
   constexpr int NH = Ch::NH, DC = Ch::DC;
   constexpr int PART = BT * DC;  // floats of one stage's part
-  // [STAGES][hi, lo][DC / 32][BT][32] floats swizzled; with BF the second
-  // part holds [ceil(DC / 64)][BT][64] bf16 swizzled
+  // [STAGES][hi, lo][DC / 32][BT][32] floats swizzled
   float* st = smem;
   int* s_tid = reinterpret_cast<int*>(st + STAGES * 2 * PART);  // [STAGES][BT]
   float* s_tn = reinterpret_cast<float*>(s_tid + STAGES * BT);
@@ -247,8 +214,6 @@ __device__ __forceinline__ void knn_tile(
 
   // float offset of chunk c (16 bytes) of target row n in a stage part
   auto off = [](int n, int c) { return (c / 8) * BT * 32 + n * 32 + (((c % 8) ^ (n & 7)) << 2); };
-  // bf16 offset of chunk cb (16 bytes, 8 values) of target row n in the bf16 part
-  auto offb = [](int n, int cb) { return (cb / 8) * BT * 64 + n * 64 + (((cb % 8) ^ (n & 7)) << 3); };
   static_assert(BT * c4n % NT == 0, "whole chunks a thread");
   constexpr int CH = BT * c4n / NT;  // chunks a thread copies and splits
   auto load_tile = [&](int it) {
@@ -271,9 +236,7 @@ __device__ __forceinline__ void knn_tile(
     }
   };
   // split this thread's chunks of tile it in place (hi over the raw value,
-  // lo in the stage's lo part), or with BF round them to bf16 into the
-  // stage's bf16 part (a float chunk is half a bf16 chunk); then tell the
-  // async proxy and the ring
+  // lo in the stage's lo part); then tell the async proxy and the ring
   auto split_tile = [&](int it) {
     const int s = it % STAGES;
 #pragma unroll
@@ -281,19 +244,13 @@ __device__ __forceinline__ void knn_tile(
       const int e = threadIdx.x + i * NT, n = e / c4n, c = e % c4n;
       float* p = st + s * 2 * PART + off(n, c);
       const float4 x = *reinterpret_cast<const float4*>(p);
-      if constexpr (BF) {
-        __nv_bfloat16* pb = reinterpret_cast<__nv_bfloat16*>(st + s * 2 * PART + PART);
-        *reinterpret_cast<uint2*>(pb + offb(n, c / 2) + 4 * (c % 2)) =
-            make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
-      } else {
-        uint4 hi, lo;
-        split_tf32(x.x, hi.x, lo.x);
-        split_tf32(x.y, hi.y, lo.y);
-        split_tf32(x.z, hi.z, lo.z);
-        split_tf32(x.w, hi.w, lo.w);
-        *reinterpret_cast<uint4*>(p) = hi;
-        *reinterpret_cast<uint4*>(p + PART) = lo;
-      }
+      uint4 hi, lo;
+      split_tf32(x.x, hi.x, lo.x);
+      split_tf32(x.y, hi.y, lo.y);
+      split_tf32(x.z, hi.z, lo.z);
+      split_tf32(x.w, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(p) = hi;
+      *reinterpret_cast<uint4*>(p + PART) = lo;
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     mbar_arrive(full + s);
@@ -302,12 +259,10 @@ __device__ __forceinline__ void knn_tile(
   // the thread's 2 query rows (warp w: rows 16 w + g and + 8), columns
   // c0 .. c0 + DC, in registers in wgmma's A fragment order: TF32 k-step ks
   // holds (row g, k tg), (row g + 8, k tg), (row g, k tg + 4), (row g + 8,
-  // k tg + 4), k = dimension c0 + 8 ks + k; bf16 k-step ks the pairs (k, k
-  // + 1) at k = 2 tg and 2 tg + 8 in the same order, k = dimension c0 + 16
-  // ks + k; zero past D
+  // k tg + 4), k = dimension c0 + 8 ks + k; zero past D
   const int r0 = 16 * warp + g;
-  constexpr int KS = BF ? DC / 16 : DC / 8;  // k-steps a chunk
-  uint32_t ah[KS][4], al[BF ? 1 : KS][4];
+  constexpr int KS = DC / 8;  // k-steps a chunk
+  uint32_t ah[KS][4], al[KS][4];
   auto load_q = [&](int c0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -316,14 +271,8 @@ __device__ __forceinline__ void knn_tile(
       auto x = [&](int k) { return gq < Fq && c0 + k < D ? row[k] : 0.f; };
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
-        if constexpr (BF) {
-          const int k = 16 * ks + 2 * tg;
-          ah[ks][h] = pack_bf16(x(k), x(k + 1));
-          ah[ks][2 + h] = pack_bf16(x(k + 8), x(k + 9));
-        } else {
-          split_tf32(x(8 * ks + tg), ah[ks][h], al[ks][h]);
-          split_tf32(x(8 * ks + tg + 4), ah[ks][2 + h], al[ks][2 + h]);
-        }
+        split_tf32(x(8 * ks + tg), ah[ks][h], al[ks][h]);
+        split_tf32(x(8 * ks + tg + 4), ah[ks][2 + h], al[ks][2 + h]);
       }
     }
   };
@@ -379,22 +328,18 @@ __device__ __forceinline__ void knn_tile(
     mbar_wait(full + s, (it / STAGES) & 1);  // every thread's split of item it
 
     // 3xTF32 on the tensor cores, asynchronously: per k-step lo.hi, hi.lo,
-    // hi.hi; or one bf16 product a k-step. B's descriptor: 128-byte
-    // swizzle, 8-row groups 1024 bytes apart, k-step ks at K-block ks / 4,
-    // 32 bytes a step inside it (8 TF32 or 16 bf16 values). A tile's first
-    // chunk starts the accumulators from zero, the others add on.
+    // hi.hi. B's descriptor: 128-byte swizzle, 8-row groups 1024 bytes
+    // apart, k-step ks at K-block ks / 4, 32 bytes a step inside it (8 TF32
+    // values). A tile's first chunk starts the accumulators from zero, the
+    // others add on.
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       const uint32_t b_hi = st_addr + (s * 2 * PART) * 4 + (ks / 4) * BT * 128 + (ks % 4) * 32;
-      if constexpr (BF) {
-        wgmma_bf16(acc, ah[ks], desc_sw128(b_hi + PART * 4), ks > 0 || h > 0);
-      } else {
-        const uint64_t dh = desc_sw128(b_hi), dl = desc_sw128(b_hi + PART * 4);
-        wgmma_tf32(acc, al[ks], dh, ks > 0 || h > 0);
-        wgmma_tf32(acc, ah[ks], dl, 1);
-        wgmma_tf32(acc, ah[ks], dh, 1);
-      }
+      const uint64_t dh = desc_sw128(b_hi), dl = desc_sw128(b_hi + PART * 4);
+      wgmma_tf32(acc, al[ks], dh, ks > 0 || h > 0);
+      wgmma_tf32(acc, ah[ks], dl, 1);
+      wgmma_tf32(acc, ah[ks], dh, 1);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     if (it + 1 < n_items) {  // split the next item while the products run
@@ -548,16 +493,16 @@ struct PairArgs {
 
 // Clusters of two blocks: block 2 b + r takes query block b and half r of
 // the target tiles.
-template <int K, int D, bool BF>
+template <int K, int D>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NT, 1) knn_kernel(const PooledArgs a) {
-  knn_tile<K, D, 2, BF>(a.q, a.qn, a.Fq, (blockIdx.x / 2) * BQ, PooledRule{a.qid, a.qself}, a.t,
+  knn_tile<K, D, 2>(a.q, a.qn, a.Fq, (blockIdx.x / 2) * BQ, PooledRule{a.qid, a.qself}, a.t,
                     a.tid, a.tn, a.Ft, a.out_idx, a.out_dist);
 }
 
 // grid 2 P QB, QB = ceil(Kc / BQ): blockIdx.x = (2 pair + direction) QB +
 // query block, so the query blocks of one (pair, direction) run adjacent.
 // Output (P, 2, Kc, K).
-template <int K, int D, bool BF>
+template <int K, int D>
 __global__ void __launch_bounds__(NT, 1) knn_pairs_kernel(const PairArgs a) {
   const int qb_n = (a.Kc + BQ - 1) / BQ;
   const int pd = blockIdx.x / qb_n, qb = blockIdx.x % qb_n;
@@ -565,7 +510,7 @@ __global__ void __launch_bounds__(NT, 1) knn_pairs_kernel(const PairArgs a) {
   const size_t qa = (size_t)a.pairs[2 * p + dir] * a.Kc;
   const size_t tb = (size_t)a.pairs[2 * p + 1 - dir] * a.Kc;
   const size_t out = ((size_t)p * 2 + dir) * a.Kc * K;
-  knn_tile<K, D, 1, BF>(a.desc + qa * D, a.norms + qa, a.Kc, qb * BQ, PairRule{}, a.desc + tb * D,
+  knn_tile<K, D, 1>(a.desc + qa * D, a.norms + qa, a.Kc, qb * BQ, PairRule{}, a.desc + tb * D,
                     a.tag + tb, a.norms + tb, a.Kc, a.out_idx + out, a.out_dist + out);
 }
 
@@ -574,65 +519,62 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int K, int D, bool BF>
+template <int K, int D>
 cudaError_t launch(const PooledArgs& a, cudaStream_t s) {
-  constexpr size_t bytes = smem_bytes(Chunks<D, dchunk(K, BF)>::DC);
-  const cudaError_t err = allow_smem(knn_kernel<K, D, BF>, bytes);
+  constexpr size_t bytes = smem_bytes(Chunks<D, dchunk(K)>::DC);
+  const cudaError_t err = allow_smem(knn_kernel<K, D>, bytes);
   if (err != cudaSuccess) return err;
-  knn_kernel<K, D, BF><<<2 * ((a.Fq + BQ - 1) / BQ), NT, bytes, s>>>(a);
+  knn_kernel<K, D><<<2 * ((a.Fq + BQ - 1) / BQ), NT, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
-template <int K, int D, bool BF>
+template <int K, int D>
 cudaError_t launch(const PairArgs& a, int P, cudaStream_t s) {
-  constexpr size_t bytes = smem_bytes(Chunks<D, dchunk(K, BF)>::DC);
-  const cudaError_t err = allow_smem(knn_pairs_kernel<K, D, BF>, bytes);
+  constexpr size_t bytes = smem_bytes(Chunks<D, dchunk(K)>::DC);
+  const cudaError_t err = allow_smem(knn_pairs_kernel<K, D>, bytes);
   if (err != cudaSuccess) return err;
   const unsigned grid = 2u * (unsigned)P * (unsigned)((a.Kc + BQ - 1) / BQ);
-  knn_pairs_kernel<K, D, BF><<<grid, NT, bytes, s>>>(a);
+  knn_pairs_kernel<K, D><<<grid, NT, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
 // The instances: the pooled mode at K = 2, 4, 8 and 16 (a K instance serves
 // every k <= K: its first k columns are the k nearest under the strict
 // (distance, index) order), the pair list at K = 2; widths 32 to 256 in
-// steps of 32. The 3xTF32 instances of widths up to DCHUNK are built in
-// knn.cu; the 3xTF32 instances of widths above DCHUNK (160, 192, 224 and 256),
-// built in knn_wide.cu, and the bf16 instances of every width, built in
-// knn_bf16.cu. K is the instance's (2, 4, 8, 16; the pair list 2).
+// steps of 32. The instances of widths up to DCHUNK are built in knn.cu,
+// those of widths above DCHUNK (160, 192, 224 and 256) in knn_wide.cu. K is
+// the instance's (2, 4, 8, 16; the pair list 2).
 cudaError_t launch_wide(int K, int D, const PooledArgs& a, cudaStream_t s);
 cudaError_t launch_wide(int K, int D, const PairArgs& a, int P, cudaStream_t s);
-cudaError_t launch_bf16(int K, int D, const PooledArgs& a, cudaStream_t s);
-cudaError_t launch_bf16(int K, int D, const PairArgs& a, int P, cudaStream_t s);
 
-// Dispatch a run-time width D to the instances listed in Ds (with BF and K
-// fixed); cudaErrorInvalidValue for a width not listed.
-template <int K, bool BF, int... Ds>
+// Dispatch a run-time width D to the instances listed in Ds (with K fixed);
+// cudaErrorInvalidValue for a width not listed.
+template <int K, int... Ds>
 struct Widths {
   template <class... Args>
   static cudaError_t launch_d(int D, const Args&... args) {
     cudaError_t err = cudaErrorInvalidValue;
-    ((D == Ds ? (err = launch<K, Ds, BF>(args...), true) : false) || ...);
+    ((D == Ds ? (err = launch<K, Ds>(args...), true) : false) || ...);
     return err;
   }
 };
 
 // The pooled instance of K (2, 4, 8 or 16) over widths Ds.
-template <bool BF, int... Ds>
+template <int... Ds>
 cudaError_t launch_pooled(int K, int D, const PooledArgs& a, cudaStream_t s) {
   switch (K) {
-    case 2: return Widths<2, BF, Ds...>::launch_d(D, a, s);
-    case 4: return Widths<4, BF, Ds...>::launch_d(D, a, s);
-    case 8: return Widths<8, BF, Ds...>::launch_d(D, a, s);
-    case 16: return Widths<16, BF, Ds...>::launch_d(D, a, s);
+    case 2: return Widths<2, Ds...>::launch_d(D, a, s);
+    case 4: return Widths<4, Ds...>::launch_d(D, a, s);
+    case 8: return Widths<8, Ds...>::launch_d(D, a, s);
+    case 16: return Widths<16, Ds...>::launch_d(D, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // The pair-list instance (K = 2) over widths Ds.
-template <bool BF, int... Ds>
+template <int... Ds>
 cudaError_t launch_pairs(int K, int D, const PairArgs& a, int P, cudaStream_t s) {
-  return K == 2 ? Widths<2, BF, Ds...>::launch_d(D, a, P, s) : cudaErrorInvalidValue;
+  return K == 2 ? Widths<2, Ds...>::launch_d(D, a, P, s) : cudaErrorInvalidValue;
 }
 
 }  // namespace b1

@@ -8,11 +8,11 @@
 namespace b1 {
 
 cudaError_t launch_wide(int K, int D, const PooledArgs& a, cudaStream_t s) {
-  return launch_pooled<false, 160, 192, 224, 256>(K, D, a, s);
+  return launch_pooled<160, 192, 224, 256>(K, D, a, s);
 }
 
 cudaError_t launch_wide(int K, int D, const PairArgs& a, int P, cudaStream_t s) {
-  return launch_pairs<false, 160, 192, 224, 256>(K, D, a, P, s);
+  return launch_pairs<160, 192, 224, 256>(K, D, a, P, s);
 }
 
 }  // namespace b1

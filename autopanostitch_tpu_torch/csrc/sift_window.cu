@@ -102,6 +102,8 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr float TWO_PI_F = 6.28318530717958647692f;  // float32(2 pi), the reference's divisor
@@ -578,32 +580,10 @@ __global__ void __launch_bounds__(DESC_NT)
 // host side
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query (no -lcuda).
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The TMA route's tensor map: the stack as (S H, 2 W) float32, box
 // (win, 2 pitch(win)).
 int tensor_map(CUtensorMap* map, const float* src, int S, int H, int W, int win) {
-  EncodeTiled enc = encoder();
+  tma::EncodeTiled enc = tma::encoder();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)2 * W, (cuuint64_t)S * H};
   const cuuint64_t strides[1] = {(cuuint64_t)2 * W * sizeof(float)};

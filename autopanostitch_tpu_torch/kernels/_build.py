@@ -6,8 +6,9 @@ interface (no PyTorch headers: the build takes about a minute, most of it
 B1's template instances, split over `knn.cu`, `knn_wide.cu` and
 `knn_bf16.cu` so that three `nvcc`s share them, where a
 `torch.utils.cpp_extension` build of one small file took minutes). The library lands in
-`autopanostitch_tpu_torch/_build/`, named by a hash of the sources and the
-flags, so a changed source rebuilds and an unchanged one loads at once.
+`autopanostitch_tpu_torch/_build/`, named by a hash of the sources (every
+`*.cu` and every header, `*.cuh`, they include) and the flags, so a changed
+source rebuilds and an unchanged one loads at once.
 
 `nvcc` is looked up as `$CUDA_HOME/bin/nvcc`, then on `PATH`, then in the
 toolkit's default install location.

@@ -26,7 +26,10 @@ differences (an exact duplicate reads 0); the plain version uses float32
 matmuls with TF32 off. With `compute_dtype="bfloat16"` both take the
 reference's bf16 path (`pairwise_sqdist` with a bf16 cross term): q and t
 rounded to bf16, their products summed in float32, the distance
-max(|q|^2 + |t|^2 - 2 q.t, 0) from float32 norms, and no refinement. On
+max(|q|^2 + |t|^2 - 2 q.t, 0) from float32 norms, and no refinement. The
+bf16 kernel's prologue rounds each set to bf16 once, into the norm scratch
+the wrapper allocates (`bf16_scratch_floats`); `prep_bf16_plain` is its
+plain version. On
 {0,1} vectors (the corner detectors' binary descriptors, 256 wide) every
 product is exact either way, so ties keep the plain version's (distance,
 index) order bit for bit.
@@ -68,6 +71,29 @@ def operand(x, compute_dtype: str = "float32"):
     `preferred_element_type=float32` does (a bf16 `torch.mm` on the CPU
     would round the sums to bf16)."""
     return x.to(torch.bfloat16).float() if compute_dtype == "bfloat16" else x
+
+
+def bf16_width(D: int) -> int:
+    """Columns of a bf16 copy's rows: D rounded up to whole 128-byte rows
+    (64 bf16), as the bf16 instance's TMA boxes read them
+    (`csrc/knn_bf16.cuh` bf16_width)."""
+    return 64 * -(-D // 64)
+
+
+def bf16_scratch_floats(F: int, D: int) -> int:
+    """float32 elements of the bf16 instance's scratch for F rows of width D
+    (`csrc/knn_bf16.cuh` bf16_rows_at): F norms padded to a multiple of 64,
+    then F rows of bf16_width(D) bf16."""
+    return -(-F // 64) * 64 + F * bf16_width(D) // 2
+
+
+def prep_bf16_plain(x):
+    """Plain version of the bf16 instance's prologue (`row_prep_bf16` in
+    `csrc/knn.cu`): (|x|^2 (F,) float32, x rounded to bf16 to nearest even
+    and zero-padded to bf16_width(D) columns, (F, W) bfloat16)."""
+    norms = torch.sum(x * x, dim=-1)
+    rows = torch.nn.functional.pad(x, (0, bf16_width(x.shape[-1]) - x.shape[-1]))
+    return norms, rows.to(torch.bfloat16)
 
 
 def pad_width(x):
@@ -114,20 +140,24 @@ def _knn_cuda(desc_q, qid, desc_t, tid, k, self_idx, compute_dtype):
     Ft = desc_t.shape[0]
     K = next(K for K in POOLED_K if K >= k)
     dev = desc_q.device
-    qn = torch.empty(Fq, dtype=torch.float32, device=dev)
-    tn = torch.empty(Ft, dtype=torch.float32, device=dev)
+    bf = compute_dtype == "bfloat16"
+    # norm scratches; the bf16 instance also keeps each set rounded there
+    # (the targets' unused when they are the queries)
+    qn = torch.empty(bf16_scratch_floats(Fq, D) if bf else Fq, dtype=torch.float32, device=dev)
+    tn = torch.empty(0 if bf and same else bf16_scratch_floats(Ft, D) if bf else Ft,
+                     dtype=torch.float32, device=dev)
     idx = torch.empty((Fq, K), dtype=torch.int32, device=dev)
     dist = torch.empty((Fq, K), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.apst_knn(
         desc_q.data_ptr(), qid.data_ptr(),
         None if self_idx is None else self_idx.data_ptr(), Fq,
-        desc_t.data_ptr(), tid.data_ptr(), Ft, D, K, int(compute_dtype == "bfloat16"),
+        desc_t.data_ptr(), tid.data_ptr(), Ft, D, K, int(bf),
         qn.data_ptr(), tn.data_ptr(), idx.data_ptr(), dist.data_ptr(), stream,
     )
     _build.check(err, "apst_knn")
     launches += 1
-    bf16_launches += compute_dtype == "bfloat16"
+    bf16_launches += bf
     if K != k:
         idx, dist = idx[:, :k].contiguous(), dist[:, :k].contiguous()
     return idx, dist
@@ -220,18 +250,20 @@ def _knn_pairs_cuda(desc, valid, pairs, k, compute_dtype):
     P = pairs.shape[0]
     dev = desc.device
     tag = torch.where(valid, 0, -2).to(torch.int32)
-    norms = torch.empty(N * Kc, dtype=torch.float32, device=dev)
+    bf = compute_dtype == "bfloat16"
+    norms = torch.empty(bf16_scratch_floats(N * Kc, D) if bf else N * Kc, dtype=torch.float32,
+                        device=dev)
     idx = torch.empty((P, 2, Kc, 2), dtype=torch.int32, device=dev)
     dist = torch.empty((P, 2, Kc, 2), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.apst_knn_pairs(
         desc.data_ptr(), tag.data_ptr(), N, Kc, D, pairs.data_ptr(), P, 2,
-        int(compute_dtype == "bfloat16"), norms.data_ptr(), idx.data_ptr(), dist.data_ptr(),
+        int(bf), norms.data_ptr(), idx.data_ptr(), dist.data_ptr(),
         stream,
     )
     _build.check(err, "apst_knn_pairs")
     pair_launches += 1
-    bf16_pair_launches += compute_dtype == "bfloat16"
+    bf16_pair_launches += bf
     if k != 2:
         idx, dist = idx[..., :k].contiguous(), dist[..., :k].contiguous()
     return idx, dist

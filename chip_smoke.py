@@ -8,7 +8,8 @@
 
 Phases, each printing its own lines:
   1. environment: the card's name and power limit (nvidia-smi), torch, CUDA;
-  2. build the CUDA kernels from `autopanostitch_tpu_torch/csrc/`;
+  2. build the CUDA kernels from `autopanostitch_tpu_torch/csrc/`; fail on a
+     register spill or a wgmma that ptxas serialised (warnings C7514/C7515);
   3. B1 (pooled exact k-NN) against its plain version at the slice's shapes,
      and at phase 11's: each half of the queries sliced from the pool;
   3b. B1's pair-list mode against its plain version at the pairwise
@@ -20,7 +21,9 @@ Phases, each printing its own lines:
      (binary descriptors then run on the bf16 instance);
   3d. B1's bf16 instance (compute_dtype="bfloat16") against the plain bf16
      version at phase 3's and 3b's shapes: indices identical outside 1e-5
-     ties, distances within 1e-5 relative; bound by one bf16 product;
+     ties, distances within 1e-5 relative; bound by one bf16 product, with
+     its epilogue's issue time beside it (as in 3c and 3e: EPILOGUE_OPS
+     CUDA-core instructions a (query, target) pair);
   3e. B1 at the widths it takes zero-padded (D = 16, 72) and at k = 12
      (its K = 16 instance), both operand types, against the plain version;
   4. B2's first port (the SIFT window gather alone, off the main path now)
@@ -105,6 +108,7 @@ splits the two on the card).
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -126,6 +130,10 @@ TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
+# B1's bf16 epilogue: CUDA-core instructions a (query, target) pair (the
+# add qn + tn, the fma, the compare, the candidate bit), issued at 128 lanes
+# an SM a clock (`epilogue_bound`, printed beside the bf16 rows' bounds)
+EPILOGUE_OPS = 4
 JAX_MULTIPANO_PSNR = 49.74  # lowest ring/projection PSNR of the JAX package, dB
 JAX_PLANAR_PSNR = 57.08
 # phase 8: the ring of 12 views (800x600, f = 600 px) stitched with other
@@ -215,6 +223,37 @@ def time_ms(fn, dev, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+@functools.lru_cache(maxsize=None)
+def issue_rate():
+    """(CUDA-core instructions a second, how it was read): 128 lanes an SM a
+    clock at the card's highest SM clock (nvidia-smi clocks.max.sm) on its
+    SMs, both read in this run; None where either cannot be read."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60).stdout
+        mhz = float(out.strip().splitlines()[0].split()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        return None
+    return sms * 128 * mhz * 1e6, f"{sms} SMs x 128 lanes x {mhz:.0f} MHz"
+
+
+def epilogue_bound(pairs: float) -> str:
+    """The bf16 epilogue's issue time, as printed: EPILOGUE_OPS instructions
+    a (query, target) pair at the card's CUDA-core issue rate. It runs beside
+    the products, so it caps the share of the product bound any design
+    keeping this epilogue can reach."""
+    rate = issue_rate()
+    if rate is None:
+        return "epilogue issue bound not measured (the SM clock was not read)"
+    return (f"epilogue issue bound {pairs * EPILOGUE_OPS / rate[0] * 1e3:.3f} ms ({pairs:.3e} "
+            f"pairs x {EPILOGUE_OPS} instructions at {rate[1]})")
+
+
 def bound_ms(flop: float, nbytes: float, flop_rate: float = TF32_FLOPS):
     """(least time in ms, "operations" | "bytes"): the larger of flop at
     `flop_rate` and nbytes at HBM_BYTES."""
@@ -223,18 +262,21 @@ def bound_ms(flop: float, nbytes: float, flop_rate: float = TF32_FLOPS):
 
 
 def b1_record(label: str, flop: float, nbytes: float, err: float, bad: int, times: dict,
-              one_product: bool = False) -> dict:
+              one_product: bool = False, D: int = 128) -> dict:
     """Print B1's agreement, times, bound and share; return its record. The
     product of float descriptors in float32 needs 3xTF32 (3 tensor-core flop
     a float32 flop). The bf16 instance does one product at the bf16 rate
     (`one_product`), which is also all {0,1} descriptors need: there it is
-    exact with bf16 operands and float32 sums."""
+    exact with bf16 operands and float32 sums. Beside the bound of the bf16
+    instance stands its epilogue's issue time over the (query, target)
+    pairs, flop / 2 D of them (`epilogue_bound`)."""
     ops, rate, unit = (flop, BF16_FLOPS, "bf16") if one_product else (3 * flop, TF32_FLOPS, "3xTF32")
     bound, by = bound_ms(ops, nbytes, rate)
+    epi = f", {epilogue_bound(flop / (2 * D))}" if one_product else ""
     log(f"B1 {label}: max|dist diff|={err:.3e} idx mismatches outside ties={bad} "
         + " ".join(f"{k} {v:.3f} ms" for k, v in times.items())
         + f" | bound {bound:.3f} ms ({by}: {ops:.3e} flop at {rate / 1e12:.0f} TFLOP/s {unit},"
-        f" {nbytes / 1e6:.1f} MB), share {bound / times['kernel']:.1%}; one TF32 pass "
+        f" {nbytes / 1e6:.1f} MB), share {bound / times['kernel']:.1%}{epi}; one TF32 pass "
         f"{flop / TF32_FLOPS * 1e3:.3f} ms, float32 FMA bound {flop / FP32_FLOPS * 1e3:.3f} ms")
     return dict(err=err, ms=times["kernel"], plain_ms=times["plain"], library_ms=times["library"],
                 mm_ms=times["mm"], bound_ms=bound, bound_by=by)
@@ -455,7 +497,7 @@ def phase_b1_wide(dev, n_img: int, K: int, narrow: int):
                      "library": time_ms(lib, dev), "mm": time_ms(mm, dev),
                      "plain": time_ms(plain, dev, reps=3)}
             rec[mode] = b1_record(label + " (bf16 instance)", flop, nbytes, 0.0, 0, times,
-                                  one_product=True)
+                                  one_product=True, D=D)
             rec[mode]["tf32_ms"] = times["tf32"]
         del qs, ts
     return rec
@@ -540,8 +582,17 @@ def phase_b1_shapes(dev, F: int, n_img: int):
                 ok = not bad and err <= 1e-4
             ms = time_ms(lambda: KN.knn(desc, qid, desc, qid, k, compute_dtype=cd), dev)
             label = f"D={D} k={k} {cd}"
+            extra = ""
+            if cd == "bfloat16":  # the card pads D to a multiple of 32 columns
+                Dp = -(-D // 32) * 32
+                nbytes = F * D * 4 + F * 4 + F * k * 8
+                bound = bound_ms(2.0 * F * F * D, nbytes, BF16_FLOPS)[0]
+                padded = bound_ms(2.0 * F * F * Dp, nbytes, BF16_FLOPS)[0]
+                extra = (f", bound {bound:.3f} ms (one bf16 product at D={D}), share "
+                         f"{bound / ms:.1%}; the same at the padded D={Dp} {padded:.3f} ms; "
+                         f"{epilogue_bound(float(F) * F)}")
             log(f"B1 shapes {label}: F={F} {gate}, idx mismatches outside ties {bad}, "
-                f"kernel {ms:.3f} ms")
+                f"kernel {ms:.3f} ms{extra}")
             if not ok:
                 raise AssertionError(f"B1 at {label} disagrees with its plain version")
             out[label] = ms
@@ -1456,6 +1507,10 @@ def main() -> int:
                 spills.append(line.strip())
         if spills:
             raise AssertionError(f"register spills: {spills}")
+        serial = [line.strip() for line in _build.build_log.splitlines()
+                  if "C7514" in line or "C7515" in line]
+        if serial:  # ptxas serialised a kernel's wgmma: its products no longer overlap
+            raise AssertionError(f"wgmma serialised: {serial[:3]}")
 
     b1 = phase_b1(dev, sizes["F"], sizes["n_img"])
     b1p = phase_b1_pairs(dev, *sizes["pairs"])

@@ -195,7 +195,7 @@ def test_library_is_named_by_source_hash():
     assert p == _build.library_path()
     assert {s.name for s in _build.CSRC.glob("*.cu")} == {"knn.cu", "knn_wide.cu", "knn_bf16.cu",
                                                            "sift_window.cu", "window_gather.cu"}
-    assert "knn.cuh" in {s.name for s in _build._sources()}
+    assert {"knn.cuh", "knn_bf16.cuh", "tma.cuh"} <= {s.name for s in _build._sources()}
 
 
 @pytest.mark.cuda
@@ -623,3 +623,116 @@ def test_knn_kernel_binary_bf16_equals_float32_on_card(D):
     a = tknn.knn_pairs(desc, val, pairs, 2)
     b = tknn.knn_pairs(desc, val, pairs, 2, compute_dtype="bfloat16")
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 4, 8, 16])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 160, 192, 224, 256])
+def test_knn_kernel_bf16_every_width_and_k_on_card(D, k):
+    """The bf16 instance of every width and K, ragged counts (333 queries
+    against 517 distinct targets): on small integers every product and sum
+    is exact, so indices and distances equal the plain bf16 version's."""
+    _run_knn_case(_knn_case(200 + D + k, 333, 517, D, integer=True), k, _cuda(), exact=True,
+                  compute_dtype="bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Fq,Ft", [(1, 3), (5, 8), (130, 65), (127, 4097), (1001, 63)])
+def test_knn_kernel_bf16_ragged_sizes_on_card(Fq, Ft):
+    dev = _cuda()
+    k = min(4, Ft)
+    _run_knn_case(_knn_case(300 + Fq + Ft, Fq, Ft, 128), k, dev, compute_dtype="bfloat16")
+    _run_knn_case(_knn_case(300 + Fq + Ft, Fq, Ft, 128, integer=True), k, dev, exact=True,
+                  compute_dtype="bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo,hi", [(0, 700), (700, 1500), (300, 1500)])
+def test_knn_kernel_bf16_queries_sliced_from_the_pool_on_card(lo, hi):
+    """Queries sliced from the pool (a rank's share in stitch_multichip, one
+    address when the slice starts at row 0) get their own bf16 copy."""
+    dev = _cuda()
+    rng = np.random.default_rng(400 + lo + hi)
+    d = torch.as_tensor(rng.integers(0, 8, (1500, 128)).astype(np.float32), device=dev)
+    ids = torch.as_tensor(np.repeat(np.arange(5, dtype=np.int32), 300), device=dev)
+    self_idx = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+    got = tknn.knn(d[lo:hi], ids[lo:hi], d, ids, 4, self_idx=self_idx, compute_dtype="bfloat16")
+    want = tknn.knn_plain(d[lo:hi], ids[lo:hi], d, ids, 4, self_idx=self_idx,
+                          compute_dtype="bfloat16")
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Kc", [(128, 150), (128, 300), (256, 150), (64, 1)])
+def test_knn_pairs_kernel_bf16_ragged_slots_on_card(D, Kc):
+    """The pair list with slot counts that are no multiple of a tile (128 at
+    D <= 128, 64 above): a tile never reads the next image's slots."""
+    dev = _cuda()
+    rng = np.random.default_rng(500 + D + Kc)
+    desc = torch.as_tensor(rng.integers(0, 8, (5, Kc, D)).astype(np.float32), device=dev)
+    val = torch.as_tensor(rng.random((5, Kc)) > 0.1, device=dev)
+    pairs = torch.as_tensor(np.stack(np.triu_indices(5, 1), -1).astype(np.int32), device=dev)
+    for k in (1, 2) if Kc > 1 else (1,):
+        got = tknn.knn_pairs(desc, val, pairs, k, compute_dtype="bfloat16")
+        want = tknn.knn_pairs_plain(desc, val, pairs, k, compute_dtype="bfloat16")
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]), k
+
+
+@pytest.mark.cuda
+def test_knn_kernel_bf16_exact_duplicates_on_card():
+    """Exact duplicates in other images, across tile boundaries: distance 0
+    (integers, exact), ties broken by the lower index as the plain version."""
+    dev = _cuda()
+    rng = np.random.default_rng(12)
+    d = rng.integers(0, 8, (4000, 128)).astype(np.float32)
+    d[2000:3000] = d[:1000]
+    d[3100:3300] = d[:200]
+    desc = torch.as_tensor(d, device=dev)
+    ids = torch.as_tensor(np.repeat(np.arange(4, dtype=np.int32), 1000), device=dev)
+    for k in (2, 4):
+        got = tknn.knn(desc, ids, desc, ids, k, compute_dtype="bfloat16")
+        want = tknn.knn_plain(desc, ids, desc, ids, k, compute_dtype="bfloat16")
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]), k
+        assert torch.equal(got[0][:1000, 0], torch.arange(2000, 3000, dtype=torch.int32,
+                                                           device=dev))
+
+
+@pytest.mark.cuda
+def test_knn_kernel_bf16_repeat_launch_bit_identical_on_card():
+    """Two launches on the same inputs, pooled and pair list: bit-identical
+    (the schedule has no atomics and no order that varies from run to run)."""
+    dev = _cuda()
+    d, ids, qid = _pooled(13, n_img=8, per=1000)
+    desc = torch.as_tensor(d, device=dev)
+    q = torch.as_tensor(qid, device=dev)
+    a = tknn.knn(desc, q, desc, q, 4, compute_dtype="bfloat16")
+    b = tknn.knn(desc, q, desc, q, 4, compute_dtype="bfloat16")
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    slots = desc.reshape(8, 1000, 128)
+    val = torch.ones((8, 1000), dtype=torch.bool, device=dev)
+    pairs = torch.as_tensor(np.stack(np.triu_indices(8, 1), -1).astype(np.int32), device=dev)
+    a = tknn.knn_pairs(slots, val, pairs, 2, compute_dtype="bfloat16")
+    b = tknn.knn_pairs(slots, val, pairs, 2, compute_dtype="bfloat16")
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [256, 160])
+def test_knn_kernel_binary_bf16_equals_plain_on_card(D):
+    """{0,1} descriptors on the bf16 instance, pooled (k = 2, 4, 8 and 12)
+    and pair list: indices and distances identical to the plain version."""
+    dev = _cuda()
+    rng = np.random.default_rng(60 + D)
+    d = torch.as_tensor(_bits(rng, (3000, D)), device=dev)
+    ids = np.repeat(np.arange(5, dtype=np.int32), 600)
+    qid = torch.as_tensor(np.where(rng.random(3000) < 0.1, -2, ids).astype(np.int32), device=dev)
+    for k in (2, 4, 8, 12):
+        got = tknn.knn(d, qid, d, qid, k, compute_dtype="bfloat16")
+        want = tknn.knn_plain(d, qid, d, qid, k, compute_dtype="bfloat16")
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]), k
+    desc = d[:1800].reshape(6, 300, D)
+    val = torch.as_tensor(rng.random((6, 300)) > 0.1, device=dev)
+    pairs = torch.as_tensor(np.stack(np.triu_indices(6, 1), -1).astype(np.int32), device=dev)
+    got = tknn.knn_pairs(desc, val, pairs, 2, compute_dtype="bfloat16")
+    want = tknn.knn_pairs_plain(desc, val, pairs, 2, compute_dtype="bfloat16")
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
