@@ -109,6 +109,8 @@ def _declare(lib):
     lib.apst_orient_hist.restype = I
     lib.apst_sift_descriptor.argtypes = [P, I, I, I, P, P, P, P, P, P, P, I, I, I, I, I, P, P]
     lib.apst_sift_descriptor.restype = I
+    lib.apst_ba_normals.argtypes = [P] * 9 + [I, I, I, ctypes.c_float, I, P, P, P, P]
+    lib.apst_ba_normals.restype = I
     lib.apst_error_string.argtypes = [I]
     lib.apst_error_string.restype = ctypes.c_char_p
 

@@ -7,18 +7,20 @@ BFS rotation propagation, rotation-consistency classifier, stratified
 match subsampling, incremental camera order.
 
 Device plane (torch): the incremental LM. Each phase works on the compact
-subsystem of the active cameras; the Jacobian of the bidirectional
-residual is `torch.func.vmap(torch.func.jacrev(...))` over every match, the
-normal equations are a dense (pd*n)^2 system solved by Cholesky, and the
+subsystem of the active cameras, padded to a bucketed shape as the
+reference pads it; its pairs' normal equations come from the `ba_normals`
+kernel (`kernels/ba.py`: closed-form Jacobians of the bidirectional
+residual), summed into a dense (pd*nb)^2 system solved by Cholesky, and the
 accept/reject decision, the lambda schedule and the state update are
 `torch.where`s on the device, so an LM iteration never waits for the host.
-Each iteration linearizes its CANDIDATE (the reference linearizes only on
-accept); the candidate's cost is the one the accept test needs, and the
-accepted state's Jacobian is then already at hand.
+On CUDA a phase is one replay of a CUDA graph captured once per phase shape
+and process (`_PhaseGraph`), the counterpart of the reference's
+`lm_phase_group`.
 """
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import NamedTuple
 
@@ -26,8 +28,8 @@ import numpy as np
 import torch
 
 from autopanostitch_tpu_torch.config import BundleConfig
+from autopanostitch_tpu_torch.kernels import ba as kba
 from autopanostitch_tpu_torch.ops import geometry as geo
-from autopanostitch_tpu_torch.ops import projections as proj
 
 _K1_PRIOR_SIGMA = 0.05
 _K1_MEAN_WEIGHT = 1.0e4
@@ -313,47 +315,6 @@ def _cpinv_focal(active_orig: np.ndarray, smooth_w: float, mean_w: float):
 # Device plane (torch)
 # ===========================================================================
 
-def _undistort_point(u, k1, cx, cy):
-    return torch.stack(proj.undistort_pixels(u[0], u[1], k1, cx, cy))
-
-
-def _project(ps, pdst, Rb_s, Rb_d, cx_s, cy_s, cx_d, cy_d, u_src):
-    """Map one source-camera point into the destination camera; params
-    [theta (3), f (, k1)] around the base rotations (theta evaluated at 0)."""
-    R_s = geo.so3_exp(ps[:3]) @ Rb_s
-    R_d = geo.so3_exp(pdst[:3]) @ Rb_d
-    if ps.shape[0] > 4:
-        u_src = _undistort_point(u_src, ps[4], cx_s, cy_s)
-    x = (u_src[0] - cx_s) / ps[3]
-    y = (u_src[1] - cy_s) / ps[3]
-    ray = torch.stack([x, y, torch.ones_like(x)])
-    p = R_d @ (R_s.T @ ray)
-    z = p[2]
-    z_safe = torch.where(z.abs() < 1e-6, torch.where(z < 0, -1e-6, 1e-6), z)
-    return torch.stack([pdst[3] * p[0] / z_safe + cx_d, pdst[3] * p[1] / z_safe + cy_d]), z
-
-
-def _pair_residual(pp, Rb_i, Rb_j, cx_i, cy_i, cx_j, cy_j, u_i, u_j):
-    """Bidirectional residual of one match: pp = [params_i, params_j].
-    Returns (r (4,), (r, z (2,))) — the aux form for jacrev."""
-    pd = pp.shape[0] // 2
-    p_i, p_j = pp[:pd], pp[pd:]
-    pred_j, z_j = _project(p_i, p_j, Rb_i, Rb_j, cx_i, cy_i, cx_j, cy_j, u_i)
-    pred_i, z_i = _project(p_j, p_i, Rb_j, Rb_i, cx_j, cy_j, cx_i, cy_i, u_j)
-    if pd > 4:
-        u_j = _undistort_point(u_j, p_j[4], cx_j, cy_j)
-        u_i = _undistort_point(u_i, p_i[4], cx_i, cy_i)
-    r = torch.cat([u_j - pred_j, u_i - pred_i])
-    return r, (r, torch.stack([z_j, z_i]))
-
-
-_jac_res = torch.func.vmap(torch.func.jacrev(_pair_residual, has_aux=True))
-
-
-def _huber_w(r2, sigma: float):
-    return torch.clamp(sigma / torch.sqrt(r2 + 1e-12), max=1.0)
-
-
 def _orthonormalize(R):
     r0 = R[..., 0, :]
     r0 = r0 / torch.linalg.vector_norm(r0, dim=-1, keepdim=True)
@@ -364,87 +325,145 @@ def _orthonormalize(R):
     return torch.stack([r0, r1, r2], dim=-2)
 
 
-class _Phase:
-    """The compact LM subsystem of one phase: active cameras and pairs."""
-
-    def __init__(self, Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd, sigma, one_direction):
-        self.cx, self.cy = cx, cy
-        self.u_i, self.u_j, self.w = u_i, u_j, w
-        self.pd, self.sigma, self.one_direction = pd, sigma, one_direction
-        pb, M = w.shape
-        nb = Rb.shape[0]
-        self.ii = pij[:, 0]
-        self.jj = pij[:, 1]
-        dev = Rb.device
-        E = torch.zeros((pb, 2, nb), device=dev)
-        E[torch.arange(pb, device=dev), 0, self.ii] = 1.0
-        E[torch.arange(pb, device=dev), 1, self.jj] = 1.0
-        self.E = E
-        self.mi = self.ii[:, None].expand(pb, M).reshape(-1)  # camera of each match
-        self.mj = self.jj[:, None].expand(pb, M).reshape(-1)
-
-    def normal_eqns(self, Rb, f, k1):
-        """(H (pd nb, pd nb), g (pd nb,), robust cost) linearized at theta = 0."""
-        pd = self.pd
-        pb, M = self.w.shape
-        nb = Rb.shape[0]
-        zero3 = torch.zeros((nb, 3), device=f.device)
-        cams = [zero3, f[:, None]] + ([k1[:, None]] if pd == 5 else [])
-        params = torch.cat(cams, dim=1)  # (nb, pd)
-        mi, mj = self.mi, self.mj
-        pp = torch.cat([params[mi], params[mj]], dim=1)
-        J, (r, z) = _jac_res(
-            pp, Rb[mi], Rb[mj], self.cx[mi], self.cy[mi], self.cx[mj], self.cy[mj],
-            self.u_i.reshape(-1, 2), self.u_j.reshape(-1, 2),
-        )  # J (B, 4, 2pd), r (B, 4), z (B, 2)
-        w_ij = _huber_w((r[:, :2] ** 2).sum(-1), self.sigma)
-        w_ji = _huber_w((r[:, 2:] ** 2).sum(-1), self.sigma)
-        if self.one_direction:
-            w_ji = torch.zeros_like(w_ji)
-        front = (z[:, 0] > 1e-4) & (z[:, 1] > 1e-4)
-        wp = self.w.reshape(-1) * front
-        w4 = torch.stack([w_ij, w_ij, w_ji, w_ji], -1) * wp[:, None]
-        J = J.reshape(pb, M, 4, 2 * pd)
-        r = r.reshape(pb, M, 4)
-        w4 = w4.reshape(pb, M, 4)
-        Jw = J * w4[..., None]
-        JtJ = torch.einsum("pmab,pmac->pbc", Jw, J).reshape(pb, 2, pd, 2, pd)
-        Jtg = torch.einsum("pmab,pma->pb", Jw, r).reshape(pb, 2, pd)
-        cost = (w4 * r * r).sum()
-        H = torch.einsum("psa,ptb,psrtc->arbc", self.E, self.E, JtJ).reshape(nb * pd, nb * pd)
-        g = torch.einsum("psa,psr->ar", self.E, Jtg).reshape(nb * pd)
-        return H, g, cost
+def _bucket(x: int, lo: int) -> int:
+    """Next power of two >= max(x, lo): phase shapes, and so the CUDA
+    graphs keyed on them, are few and shared across phases and stitches."""
+    return max(lo, 1 << int(np.ceil(np.log2(max(x, 1)))))
 
 
-def _lm_phase(Rb, f, k1, phase: _Phase, cpinv_f, seed_local: int, iters: int,
-              focal_frac: float, k1_cap: float, lam0: float, cfg: BundleConfig):
-    """`iters` LM iterations on one phase's compact subsystem; the accept
-    test and every update are device-side selects. Returns (Rb, f, k1, cost)."""
-    pd = phase.pd
+class _Statics(NamedTuple):
+    """The BundleConfig scalars an LM phase bakes in (part of its graph key)."""
+
+    sigma: float
+    one_direction: bool
+    theta_prior: float
+    focal_prior_frac: float
+    max_rot: float  # radians
+    f_lo: float
+    f_hi: float
+
+
+def _statics(cfg: BundleConfig) -> _Statics:
+    return _Statics(float(cfg.sigma_huber), bool(cfg.residual_one_direction),
+                    float(cfg.theta_prior), float(cfg.focal_prior_frac),
+                    float(np.radians(cfg.max_rotation_step_deg)), float(cfg.focal_clamp[0]),
+                    float(cfg.focal_clamp[1]))
+
+
+class _PhaseSpec(NamedTuple):
+    """Host-built arrays of one LM phase, padded to its (nb, pb) shape:
+    ints = [cam_take (nb), pair_take (pb), pij (pb, 2)] and floats =
+    [cam_ok (nb), seed one-hot (nb), pair_ok (pb), cpinv (nb, nb),
+    focal_frac, k1_cap, lam0]."""
+
+    act: np.ndarray
+    npair: int
+    nb: int
+    pb: int
+    iters: int
+    ints: np.ndarray
+    floats: np.ndarray
+
+
+def _phase_spec(n: int, loc_pairs, active, seed: int, cpinv, focal_frac: float, k1_cap: float,
+                lam0: float, iters: int, buckets=(64, 8)) -> _PhaseSpec:
+    """One phase's compact subsystem: the active cameras and the pairs
+    between them, padded as the reference's `phase_arrays` pads them (nb =
+    _bucket(k, 64), pb = _bucket(pairs, 8); `buckets=None` keeps the exact
+    sizes). Padded cameras repeat camera 0 under cam_ok = 0, padded pairs
+    pair 0 with weight 0. cpinv (k, k) or None (no focal coupling)."""
+    act = np.asarray(active, np.int64)
+    in_act = np.zeros(n, bool)
+    in_act[act] = True
+    psel = np.nonzero(in_act[loc_pairs[:, 0]] & in_act[loc_pairs[:, 1]])[0]
+    k, q = len(act), len(psel)
+    nb, pb = (_bucket(k, buckets[0]), _bucket(q, buckets[1])) if buckets else (k, q)
+    local_of = np.zeros(n, np.int64)
+    local_of[act] = np.arange(k)
+    cam_take = np.zeros(nb, np.int64)
+    cam_take[:k] = act
+    pair_take = np.zeros(pb, np.int64)
+    pair_take[:q] = psel
+    pij = np.zeros((pb, 2), np.int64)
+    pij[:q] = local_of[loc_pairs[psel]]
+    cam_ok = np.zeros(nb, np.float32)
+    cam_ok[:k] = 1.0
+    seed_1h = np.zeros(nb, np.float32)
+    seed_1h[local_of[seed] if in_act[seed] else 0] = 1.0
+    pair_ok = np.zeros(pb, np.float32)
+    pair_ok[:q] = 1.0
+    cp = np.zeros((nb, nb), np.float32)
+    if cpinv is not None:
+        cp[:k, :k] = cpinv
+    floats = np.concatenate([cam_ok, seed_1h, pair_ok, cp.reshape(-1),
+                             np.array([focal_frac, k1_cap, lam0], np.float32)])
+    return _PhaseSpec(act, q, nb, pb, iters,
+                      np.concatenate([cam_take, pair_take, pij.reshape(-1)]), floats)
+
+
+def _phase_inputs(spec: _PhaseSpec, ints, floats, R, f, k1, cx, cy, u_i, u_j, w) -> dict:
+    """The phase's device inputs: the spec's uploaded arrays (`ints`,
+    `floats`, views) and its cameras and pairs gathered from the state."""
+    nb, pb = spec.nb, spec.pb
+    cam_take, pair_take, pij = torch.split(ints, [nb, pb, 2 * pb])
+    cam_ok, seed_1h, pair_ok, cpinv, sc = torch.split(floats, [nb, nb, pb, nb * nb, 3])
+    return dict(Rb=R[cam_take], f=f[cam_take], k1=k1[cam_take], cx=cx[cam_take], cy=cy[cam_take],
+                u_i=u_i[pair_take], u_j=u_j[pair_take], w=w[pair_take] * pair_ok[:, None],
+                pij=pij.view(pb, 2), cam_ok=cam_ok, seed=seed_1h, cpinv=cpinv.view(nb, nb),
+                focal_frac=sc[0], k1_cap=sc[1], lam0=sc[2])
+
+
+def _normal_eqns(Rb, f, k1, inp: dict, E, pd: int, st: _Statics):
+    """(H (pd nb, pd nb), g (pd nb,), robust cost) linearized at theta = 0:
+    the pairs' blocks from `ba_normals`, added into the dense system through
+    the one-hot camera map E (pb, 2, nb) (deterministic, no scatter)."""
+    JtJ, Jtg, cost = kba.ba_normals(Rb, f, k1, inp["cx"], inp["cy"], inp["u_i"], inp["u_j"],
+                                    inp["w"], inp["pij"], pd, st.sigma, st.one_direction)
+    pb, _, nb = E.shape
+    T = torch.einsum("psa,psrtc->ptarc", E, JtJ.reshape(pb, 2, pd, 2, pd))
+    H = torch.einsum("ptb,ptarc->arbc", E, T).reshape(nb * pd, nb * pd)
+    g = torch.einsum("psa,psr->ar", E, Jtg.reshape(pb, 2, pd)).reshape(nb * pd)
+    return H, g, cost.sum()
+
+
+def _lm_phase(inp: dict, pd: int, iters: int, st: _Statics):
+    """`iters` LM iterations on one phase's compact subsystem (the
+    reference's `_lm_phase_body`): no host sync and no host-to-device copy,
+    so a CUDA graph can hold it whole. The accept test and every update are
+    device-side selects; padded cameras (cam_ok = 0) are pinned and keep
+    their state. Each iteration linearizes its CANDIDATE (the reference
+    linearizes only on accept): the candidate's cost is the one the accept
+    test needs, and the accepted state's system is then already at hand.
+    Returns (Rb, f, k1, cost)."""
+    Rb, f, k1 = inp["Rb"], inp["f"], inp["k1"]
     nb = Rb.shape[0]
     dev = f.device
-    fbar = f.mean()
-    theta_prior_w = 1.0 / (cfg.theta_prior**2)
-    f_prior_w = 1.0 / ((fbar / cfg.focal_prior_frac) ** 2 + 1e-12)
-    pat_theta = torch.tensor([theta_prior_w] * 3 + [0.0] * (pd - 3), device=dev)
-    pat_f = torch.tensor([0.0] * 3 + [1.0] + [0.0] * (pd - 4), device=dev)
-    prior_diag = pat_theta.repeat(nb) + pat_f.repeat(nb) * f_prior_w
+    okf = inp["cam_ok"]
+    ok = okf > 0
+    E = (inp["pij"][..., None] == torch.arange(nb, device=dev)).to(f.dtype)
+    # Brown-Lowe prior precision CpInv (the reference's buildBrownLowePrior)
+    fbar = (f * okf).sum() / torch.clamp(okf.sum(), min=1.0)
+    f_prior_w = 1.0 / ((fbar / st.focal_prior_frac) ** 2 + 1e-12)
+    slot = torch.arange(nb * pd, device=dev) % pd
+    prior_diag = (torch.where(slot < 3, 1.0 / st.theta_prior**2, 0.0).to(f.dtype)
+                  + (slot == 3) * f_prior_w)
     if pd == 5:
-        pat_k1 = torch.tensor([0.0] * 4 + [1.0 / _K1_PRIOR_SIGMA**2], device=dev)
-        prior_diag = prior_diag + pat_k1.repeat(nb)
+        k1_diag = torch.where(slot == 4, 1.0 / _K1_PRIOR_SIGMA**2, 0.0)
+        prior_diag = prior_diag + k1_diag.to(f.dtype)
     cp = torch.diag(prior_diag)
-    cp[3::pd, 3::pd] += cpinv_f
-    if pd == 5:
-        cp[4::pd, 4::pd] += _K1_MEAN_WEIGHT * (torch.eye(nb, device=dev) - 1.0 / nb)
-    cm = torch.ones(pd * nb, device=dev)
-    cm[seed_local * pd : seed_local * pd + 3] = 0.0
+    cp[3::pd, 3::pd] += inp["cpinv"]
+    if pd == 5:  # same-lens coupling of the active cameras' k1
+        kact = torch.clamp(okf.sum(), min=1.0)
+        cp[4::pd, 4::pd] += _K1_MEAN_WEIGHT * (torch.diag(okf) - okf[:, None] * okf[None, :] / kact)
+    # active columns, less the gauge: the seed camera's rotation
+    theta_slot = torch.arange(pd, device=dev) < 3
+    cm = (okf[:, None] * (1.0 - inp["seed"][:, None] * theta_slot)).reshape(-1)
     cp = cp * cm[:, None] * cm[None, :]
     pin = torch.diag(1.0 - cm)
-    max_rot = float(np.radians(cfg.max_rotation_step_deg))
-    f_lo, f_hi = float(cfg.focal_clamp[0]), float(cfg.focal_clamp[1])
+    focal_frac, k1_cap = inp["focal_frac"], inp["k1_cap"]
 
-    lam = torch.tensor(lam0, device=dev)
-    H, g, cost = phase.normal_eqns(Rb, f, k1)
+    lam = inp["lam0"]
+    H, g, cost = _normal_eqns(Rb, f, k1, inp, E, pd, st)
     for _ in range(iters):
         Hm = H * cm[:, None] * cm[None, :]
         gm = g * cm
@@ -452,10 +471,10 @@ def _lm_phase(Rb, f, k1, phase: _Phase, cpinv_f, seed_local: int, iters: int,
         Hd = Hm + cp + torch.diag(lam * damp) + pin
         L, info = torch.linalg.cholesky_ex(Hd)
         delta = -torch.cholesky_solve(gm[:, None], L)[:, 0]
-        ok = (info == 0) & torch.isfinite(delta).all()
-        delta = torch.where(ok, delta, torch.zeros_like(delta)).reshape(nb, pd)
+        good = (info == 0) & torch.isfinite(delta).all()
+        delta = torch.where(good, delta, torch.zeros_like(delta)).reshape(nb, pd)
         rot_norm = torch.linalg.vector_norm(delta[:, :3], dim=-1)
-        rot_scale = torch.clamp(max_rot / torch.clamp(rot_norm, min=1e-12), max=1.0)
+        rot_scale = torch.clamp(st.max_rot / torch.clamp(rot_norm, min=1e-12), max=1.0)
         f_cap = focal_frac * torch.clamp(f, min=1.0)
         f_scale = torch.clamp(f_cap / torch.clamp(delta[:, 3].abs(), min=1e-12), max=1.0)
         dtheta = delta[:, :3] * rot_scale[:, None]
@@ -467,10 +486,10 @@ def _lm_phase(Rb, f, k1, phase: _Phase, cpinv_f, seed_local: int, iters: int,
             parts.append(dk1[:, None])
         d_flat = torch.cat(parts, dim=1).reshape(-1)
 
-        Rb_c = _orthonormalize(geo.so3_exp(dtheta) @ Rb)
-        f_c = torch.clamp(f + df, f_lo, f_hi)
-        k1_c = torch.clamp(k1 + dk1, -_K1_CLAMP, _K1_CLAMP) if pd == 5 else k1
-        H_c, g_c, cost_c = phase.normal_eqns(Rb_c, f_c, k1_c)
+        Rb_c = torch.where(ok[:, None, None], _orthonormalize(geo.so3_exp(dtheta) @ Rb), Rb)
+        f_c = torch.where(ok, torch.clamp(f + df, st.f_lo, st.f_hi), f)
+        k1_c = torch.where(ok, torch.clamp(k1 + dk1, -_K1_CLAMP, _K1_CLAMP), k1) if pd == 5 else k1
+        H_c, g_c, cost_c = _normal_eqns(Rb_c, f_c, k1_c, inp, E, pd, st)
         pred = 0.5 * (lam * (d_flat * damp * d_flat).sum() + d_flat @ (cp @ d_flat)
                       - (d_flat * gm).sum())
         rho = (cost - cost_c) / torch.clamp(pred, min=1e-12)
@@ -487,15 +506,68 @@ def _lm_phase(Rb, f, k1, phase: _Phase, cpinv_f, seed_local: int, iters: int,
     return Rb, f, k1, cost
 
 
-def run_incremental_ba(R0, f_init, cx, cy, u_i, u_j, w, loc_pairs, order, seed: int,
-                       cfg: BundleConfig, with_k1: bool = False, device=None):
-    """Incremental Brown-Lowe BA: camera groups join best-connected-first
-    (one LM phase per step on the compact active subsystem, focal coupling
-    on), then the staged final passes with focal caps (coupling off).
+class _PhaseGraph:
+    """One LM phase shape captured as a CUDA graph (the counterpart of the
+    reference's `lm_phase_group` program): static input buffers, filled
+    before each replay, and the output tensors each replay rewrites. The
+    graph holds the phase's `iters` iterations whole, so a phase is one
+    replay with no kernel launched from Python in between. It keeps its own
+    memory pool: the dense system and the iterations' temporaries."""
 
-    R0 (N, 3, 3), f_init/cx/cy (N,) numpy; u_i/u_j (P, M, 2), w (P, M)
-    numpy match data of loc_pairs (P, 2). Returns (R, f, k1 | None, cost)
-    as tensors on `device`."""
+    def __init__(self, inp: dict, run):
+        dev = inp["f"].device
+        with torch.cuda.device(dev):
+            self.inputs = {k: v.clone() for k, v in inp.items()}
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):  # warm-up: library handles and workspaces
+                run(self.inputs)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            before = kba.captured
+            # thread_local: a collective library's watchdog thread (NCCL
+            # under `parallel/`) may query events while this thread captures
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self.outputs = run(self.inputs)
+            self.launches = kba.captured - before
+        global graph_captures
+        graph_captures += 1
+
+    def __call__(self, inp: dict):
+        global graph_replays
+        for k, v in inp.items():
+            self.inputs[k].copy_(v)
+        self.graph.replay()
+        kba.launches += self.launches  # the ba_normals launches the graph holds ran again
+        graph_replays += 1
+        return self.outputs
+
+
+_graphs: dict = {}  # (device, pd, iters, statics, (pb, M, 2), nb) -> _PhaseGraph
+graph_captures = 0  # _PhaseGraph captures in this process
+graph_replays = 0  # their replays
+
+
+def _run_phase(inp: dict, pd: int, iters: int, st: _Statics, graphs: bool):
+    """One LM phase: on CUDA (unless `graphs` is False) a replay of the
+    graph of its shape, captured at the shape's first phase in the
+    process; eagerly otherwise. A failed capture or replay raises."""
+    run = functools.partial(_lm_phase, pd=pd, iters=iters, st=st)
+    dev = inp["f"].device
+    if dev.type != "cuda" or not graphs:
+        return run(inp)
+    key = (dev, pd, iters, st, tuple(inp["u_i"].shape), inp["Rb"].shape[0])
+    graph = _graphs.get(key)
+    if graph is None:
+        graph = _graphs[key] = _PhaseGraph(inp, run)
+    return graph(inp)
+
+
+def _phase_plan(f_init, loc_pairs, order, seed: int, cfg: BundleConfig):
+    """The phases of `run_incremental_ba`: one a step of camera groups
+    joining best-connected-first (focal coupling on), then the staged final
+    passes with focal caps (coupling off). Returns their specs and, for
+    each, the number of cameras it holds (None for the final passes)."""
     n = len(f_init)
     f0 = float(np.median(f_init))
     if cfg.focal_smoothness_weight is None:
@@ -506,49 +578,64 @@ def run_incremental_ba(R0, f_init, cx, cy, u_i, u_j, w, loc_pairs, order, seed: 
     steps = list(range(2, n + 1, group))
     if not steps or steps[-1] != n:
         steps.append(n)
-    pd = 5 if with_k1 else 4
-
-    def t(a, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-
-    R = t(R0)
-    f = t(f_init)
-    k1 = torch.zeros(n, device=device)
-    cx_d, cy_d = t(cx), t(cy)
-    u_i_d, u_j_d, w_d = t(u_i), t(u_j), t(w)
     final_iters = cfg.max_iter_lm // len(cfg.focal_step_fracs) + 1
     phases = [(order[:upto], cfg.incremental_focal_frac, True, _K1_INC_STEP_CAP,
                cfg.incremental_lm_iters, upto) for upto in steps]
     phases += [(order, frac, False, _K1_STEP_CAP, final_iters, None)
                for frac in cfg.focal_step_fracs]
+    specs = [_phase_spec(n, loc_pairs, active, seed,
+                         _cpinv_focal(np.asarray(active), smooth_w, float(cfg.focal_mean_weight))
+                         if couple else None, frac, k1_cap, float(cfg.lambda0), iters)
+             for active, frac, couple, k1_cap, iters, _ in phases]
+    return specs, [p[-1] for p in phases]
+
+
+def run_incremental_ba(R0, f_init, cx, cy, u_i, u_j, w, loc_pairs, order, seed: int,
+                       cfg: BundleConfig, with_k1: bool = False, device=None,
+                       graphs: bool = True):
+    """Incremental Brown-Lowe BA: camera groups join best-connected-first
+    (one LM phase per step on the compact active subsystem, focal coupling
+    on), then the staged final passes with focal caps (coupling off).
+
+    Every phase is padded to a bucketed (nb, pb) shape. Its host arrays are
+    built up front and uploaded in one copy; on CUDA each phase is then one
+    CUDA graph replay (`_run_phase`; `graphs=False` runs the same phases
+    eagerly, the card's yardstick). The phase costs are read back once.
+
+    R0 (N, 3, 3), f_init/cx/cy (N,) numpy; u_i/u_j (P, M, 2), w (P, M)
+    numpy match data of loc_pairs (P, 2). Returns (R, f, k1 | None, cost)
+    as tensors on `device`."""
+    n = len(f_init)
+    pd = 5 if with_k1 else 4
+    st = _statics(cfg)
+    specs, uptos = _phase_plan(f_init, loc_pairs, order, seed, cfg)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    ints = torch.split(t(np.concatenate([s.ints for s in specs]), torch.long),
+                       [len(s.ints) for s in specs])
+    floats = torch.split(t(np.concatenate([s.floats for s in specs])),
+                         [len(s.floats) for s in specs])
+    R = t(R0)
+    f = t(f_init)
+    k1 = torch.zeros(n, device=device)
+    cx_d, cy_d = t(cx), t(cy)
+    u_i_d, u_j_d, w_d = t(u_i), t(u_j), t(w)
 
     phase_costs = []
     cost = torch.zeros((), device=device)
-    for active, frac, couple, k1_cap, iters, upto in phases:
-        act = np.asarray(active, np.int64)
-        in_act = np.zeros(n, bool)
-        in_act[act] = True
-        psel = np.nonzero(in_act[loc_pairs[:, 0]] & in_act[loc_pairs[:, 1]])[0]
-        local_of = np.zeros(n, np.int64)
-        local_of[act] = np.arange(len(act))
-        pij = t(local_of[loc_pairs[psel]], torch.long).reshape(-1, 2)
-        cpinv = _cpinv_focal(act, smooth_w, float(cfg.focal_mean_weight)) if couple \
-            else np.zeros((len(act), len(act)), np.float32)
-        act_d = t(act, torch.long)
-        psel_d = t(psel, torch.long)
-        phase = _Phase(R[act_d], f[act_d], k1[act_d], cx_d[act_d], cy_d[act_d],
-                       u_i_d[psel_d], u_j_d[psel_d], w_d[psel_d], pij, pd,
-                       float(cfg.sigma_huber), bool(cfg.residual_one_direction))
-        seed_local = int(local_of[seed]) if in_act[seed] else 0
-        Rb, fb, kb, cost = _lm_phase(
-            R[act_d], f[act_d], k1[act_d], phase, t(cpinv), seed_local, iters, frac,
-            k1_cap, float(cfg.lambda0), cfg,
-        )
-        R = R.index_copy(0, act_d, Rb)
-        f = f.index_copy(0, act_d, fb)
-        k1 = k1.index_copy(0, act_d, kb)
+    for spec, ints_p, floats_p, upto in zip(specs, ints, floats, uptos):
+        inp = _phase_inputs(spec, ints_p, floats_p, R, f, k1, cx_d, cy_d, u_i_d, u_j_d, w_d)
+        Rb, fb, kb, cost = _run_phase(inp, pd, spec.iters, st, graphs)
+        k = len(spec.act)
+        act_d = ints_p[:k]
+        R = R.index_copy(0, act_d, Rb[:k])
+        f = f.index_copy(0, act_d, fb[:k])
+        k1 = k1.index_copy(0, act_d, kb[:k])
+        cost = cost.clone()  # a graph's output: its next replay rewrites it
         if upto is not None:
-            phase_costs.append((upto, cost, len(psel)))
+            phase_costs.append((upto, cost, spec.npair))
 
     # RMSE-history anomaly check (one deferred host read of the phase costs)
     costs = torch.stack([c for _, c, _ in phase_costs]).cpu().numpy() if phase_costs else []

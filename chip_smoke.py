@@ -77,12 +77,27 @@ Phases, each printing its own lines:
   9. the 100-view ring of `bench.build_pano` (384x288, f = 350 px) with its
      config: one panorama of 100, focal error < 1 %, PSNR >= 40 dB and >=
      the JAX package's CPU result less 3 dB (JAX_PANO100), the stage split;
+  9b. the bundle adjustment of phases 5 and 9 again from their recorded
+     inputs: the `ba_normals` kernel (csrc/ba_normals.cu, the LM's per-pair
+     normal equations) against its plain version at each one's largest LM
+     phase (the ring: nb 64, pb 64, M 300; pano100: nb 128, pb 128, M 256;
+     pd 5), each entry's difference over its Cauchy-Schwarz scale: to the
+     plain version run in float64 no larger than twice the float32 plain
+     version's own (or 1e-5; at a converged state the residuals are small
+     differences of pixel coordinates, and float32 alone errs by ~1e-5 of
+     the cost there), a repeat launch bit-identical, timed beside its bound (the larger of its float32
+     operations at 67 TFLOP/s and its bytes; no PyTorch call computes it);
+     then each whole BA run eagerly and replayed from the cached CUDA graphs
+     of its LM phases: R, f, k1 and cost bit-identical to each other and to
+     the stitch's own;
   10. the command line, `python -m autopanostitch_tpu_torch.cli` on a
      folder of a 12-view ring, twice with one `--cache`: the second run
      resumes and writes the same files and panorama; then a stitch with
      `show_panorama_imgs_nums` adds the annotated panorama;
   11. the multi-GPU path, `api.stitch_multichip`, on this one card: 11a
-     phase 9's ring on an NCCL mesh of world size 1 in this process; 11b the
+     phase 9's ring on an NCCL mesh of world size 1 in this process, with
+     the LM phase graph cache emptied first, so that its graphs are
+     captured with the NCCL process group alive (it fails if none was); 11b the
      same on two ranks spawned over gloo that share the card (each prints
      its stage split and the card, and writes its result for this process);
      11c phase 6's folder at world size 1. Phase 9's and phase 6's gates,
@@ -92,7 +107,10 @@ Phases, each printing its own lines:
      LSB on average); a failing rank fails the phase. The rehearsal runs
      11a and 11c over gloo on the CPU and 11b as two CPU ranks.
 Phases 5-11 each count the kernels' launches from 0 and fail if a kernel of
-the path never launched (in 11b on either rank). Then a JSON line of the kernels, the nvidia-smi
+the path never launched (in 11b on either rank); every rotational stitch
+must launch `ba_normals` (its count includes the launches that the LM
+phase graphs replay), and each prints its bundle_adjustment seconds and the
+graphs it captured and replayed. Then a JSON line of the kernels, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero without that line. This script imports nothing of JAX.
 
@@ -130,6 +148,11 @@ TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
+# ba_normals: float32 operations a match as `csrc/ba_normals.cu` writes them
+# (an FMA counts 2), by pd: both directions' residual and closed-form
+# Jacobian (180 / 134 each), the weights (21) and the sums into JtJ's upper
+# triangle, Jtg and the cost (572 / 396)
+BA_FLOPS_PER_MATCH = {5: 953, 4: 685}
 # B1's bf16 epilogue: CUDA-core instructions a (query, target) pair (the
 # add qn + tn, the fma, the compare, the candidate bit), issued at 128 lanes
 # an SM a clock (`epilogue_bound`, printed beside the bf16 rows' bounds)
@@ -924,7 +947,8 @@ def phase_slice(dev, n: int, f_true: float, w: int, h: int, env_hw):
     t0 = time.perf_counter()
     iset, env, Rs = ring_scene(n, f_true, w, h, env_hw)
     log(f"slice: scene {n} views {w}x{h} f={f_true} built in {time.perf_counter() - t0:.1f} s")
-    res, counts = run_stitch("slice", iset, StitchConfig(), dev)
+    with record_ba({}) as ba_call:
+        res, counts = run_stitch("slice", iset, StitchConfig(), dev)
     if len(res.panoramas) != 1 or len(res.panoramas[0]["members"]) != n:
         raise AssertionError(f"expected one {n}-view panorama, got components {res.components}")
     pano = res.panoramas[0]["panorama"]
@@ -938,10 +962,10 @@ def phase_slice(dev, n: int, f_true: float, w: int, h: int, env_hw):
         raise AssertionError(f"focal error {ferr:.3f} % >= 1 %")
     if not psnr >= 40.0:
         raise AssertionError(f"PSNR {psnr:.2f} dB < 40 dB")
-    require_launches("slice", counts, ("knn", "orient_hist", "descriptor"), dev)
+    require_launches("slice", counts, ("knn", "orient_hist", "descriptor", "ba_normals"), dev)
     split = features_split(iset.images, iset.sizes, dev)
     log("slice: features stage split s " + json.dumps(split))
-    return counts, res.features
+    return counts, res.features, ba_call
 
 
 def ring_gates(label: str, res, env, Rs, n: int, f_true: float, psnr_min: float, jax=None):
@@ -1001,7 +1025,8 @@ def phase_ring_options(dev, n: int, f_true: float, w: int, h: int, env_hw, feats
     for name, fields in RING_OPTIONS.items():
         res, counts = run_stitch(f"ring_{name}", iset, config_with(config, fields), dev)
         ring_gates(f"ring_{name}", res, env, Rs, n, f_true, 40.0, gates and gates[name])
-        need = ("orient_hist", "descriptor") + (("knn_bf16",) if name == "bf16" else ())
+        need = ("orient_hist", "descriptor", "ba_normals") + (("knn_bf16",) if name == "bf16"
+                                                             else ())
         require_launches(f"ring_{name}", counts, need, dev)
         if name == "approximate" and counts["knn"]:
             raise AssertionError(f"the approximate matcher launched B1: {counts}")
@@ -1066,7 +1091,7 @@ def phase_cli(dev, n: int, f_true: float, w: int, h: int, env_hw):
     log(f"annotated: panorama {pano.shape}, annotated {ann.shape}, {drawn} pixels drawn")
     if ann.shape != pano.shape or drawn < 1000:
         raise AssertionError("the annotated panorama is missing or empty")
-    require_launches("annotated", counts, ("knn", "orient_hist", "descriptor"), dev)
+    require_launches("annotated", counts, ("knn", "orient_hist", "descriptor", "ba_normals"), dev)
     return counts
 
 
@@ -1084,7 +1109,8 @@ def phase_pano100(dev, n: int, f_true: float, w: int, h: int, env_hw, gate):
         import torch
 
         torch.cuda.reset_peak_memory_stats(dev)
-    res, counts = run_stitch("pano100", iset, config_with(config, PANO100), dev)
+    with record_ba({}) as ba_call:
+        res, counts = run_stitch("pano100", iset, config_with(config, PANO100), dev)
     if dev.type == "cuda":
         from autopanostitch_tpu_torch.utils import timing
 
@@ -1093,8 +1119,8 @@ def phase_pano100(dev, n: int, f_true: float, w: int, h: int, env_hw, gate):
     psnr, _ = ring_gates("pano100", res, env, Rs, n, f_true, psnr_min, gate)
     log(f"pano100: PSNR {psnr:.3f} dB, {psnr - PANO100_TPU_PSNR:+.3f} dB from the JAX package's "
         f"TPU v5e record {PANO100_TPU_PSNR} dB (history, not a target)")
-    require_launches("pano100", counts, ("knn", "orient_hist", "descriptor"), dev)
-    return counts, stitch_record(res)
+    require_launches("pano100", counts, ("knn", "orient_hist", "descriptor", "ba_normals"), dev)
+    return counts, stitch_record(res), ba_call
 
 
 def stitch_record(res) -> dict:
@@ -1206,21 +1232,150 @@ def run_stitch(label: str, iset, cfg, dev, mesh=None):
     launch counts taken from 0; prints the stage times and counts. Returns
     (result, counts)."""
     from autopanostitch_tpu_torch import api, kernels
+    from autopanostitch_tpu_torch.models import bundle
     from autopanostitch_tpu_torch.models.pipeline import StageTimer
 
     timer = StageTimer(dev)
     kernels.reset_launch_counts()
+    bundle.graph_captures = bundle.graph_replays = 0
     t0 = time.perf_counter()
     if mesh is None:
         res = api.stitch(iset, cfg, seed=0, device=str(dev), timer=timer)
     else:
         res = api.stitch_multichip(iset, cfg, mesh=mesh, seed=0, timer=timer)
     wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts = dict(kernels.launch_counts(), ba_graph_captures=bundle.graph_captures,
+                  ba_graph_replays=bundle.graph_replays)
     log(f"{label}: stage wall s " + json.dumps({k: round(v, 4) for k, v in timer.report().items()})
         + f" total {wall:.3f}")
     log(f"{label}: kernel launches in the stitch {json.dumps(counts)}")
+    log(f"{label}: bundle_adjustment {timer.report().get('bundle_adjustment', 0.0):.4f} s, "
+        f"ba_normals launches {counts['ba_normals']}, LM phase graphs captured "
+        f"{counts['ba_graph_captures']}, replayed {counts['ba_graph_replays']}")
     return res, counts
+
+
+@contextlib.contextmanager
+def record_ba(store: dict):
+    """Record, in `store`, the arguments and the result of the last call of
+    the bundle adjustment's `run_incremental_ba` made inside."""
+    from autopanostitch_tpu_torch.models import bundle
+
+    saved = bundle.run_incremental_ba
+
+    def run(*args, **kw):
+        out = saved(*args, **kw)
+        store.update(args=args, kw=kw, out=out)
+        return out
+
+    bundle.run_incremental_ba = run
+    try:
+        yield store
+    finally:
+        bundle.run_incremental_ba = saved
+
+
+def ba_phase_inputs(rec: dict, dev):
+    """The inputs of the last (largest) LM phase of a recorded bundle
+    adjustment, all its cameras, linearized at its result: (spec, inputs,
+    pd, cfg)."""
+    import torch
+
+    from autopanostitch_tpu_torch.models import bundle as tba
+
+    _, f_init, cx, cy, u_i, u_j, w, loc_pairs, order, seed, cfg = rec["args"]
+    spec = tba._phase_spec(len(f_init), loc_pairs, order, seed, None, cfg.focal_step_fracs[-1],
+                           tba._K1_STEP_CAP, float(cfg.lambda0), 0)
+    R, f, k1, _ = rec["out"]
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    inp = tba._phase_inputs(spec, t(spec.ints, torch.long), t(spec.floats), R, f,
+                            torch.zeros_like(f) if k1 is None else k1, t(cx), t(cy), t(u_i),
+                            t(u_j), t(w))
+    return spec, inp, 5 if rec["kw"].get("with_k1") else 4, cfg
+
+
+def ba_normals_error(got, ref) -> float:
+    """The kernel's largest difference to the plain version, each entry over
+    its Cauchy-Schwarz scale: sqrt(JtJ_aa JtJ_bb) for JtJ, sqrt(JtJ_aa
+    cost) for Jtg, the cost for the cost."""
+    JtJ, Jtg, cost = (x.double().cpu() for x in got)
+    rJ, rg, rc = (x.double().cpu() for x in ref)
+    d = (rJ.diagonal(dim1=1, dim2=2).clamp(min=0) + 1e-30).sqrt()
+    return float(max(((JtJ - rJ).abs() / (d[:, :, None] * d[:, None, :])).max(),
+                     ((Jtg - rg).abs() / (d * (rc.clamp(min=0) + 1e-30).sqrt()[:, None])).max(),
+                     ((cost - rc).abs() / (rc.abs() + 1e-30)).max()))
+
+
+def phase_ba(dev, recs: dict) -> dict:
+    """Phase 9b: the bundle adjustment of phases 5 (the ring) and 9
+    (pano100), from their recorded inputs. `ba_normals` against its plain
+    version at each one's largest LM phase (the ring: nb 64, pb 64, M 300;
+    pano100: nb 128, pb 128, M 256; pd 5), as accurate as the plain
+    version against the plain version in float64 (`ba_normals_error`: no
+    more than twice its error, or 1e-5) and a repeat launch bit-identical,
+    both timed (CUDA events, median
+    of 5) beside the kernel's bound; then each whole BA again, eagerly and
+    replayed from the cached CUDA graphs: R, f, k1 and cost bit-identical to
+    each other and to the stitch's own, each wall-timed (host clock, ending
+    in a synchronize). Returns {scene: record}."""
+    import torch
+
+    from autopanostitch_tpu_torch.kernels import ba as kba
+    from autopanostitch_tpu_torch.models import bundle as tba
+
+    out = {}
+    for name, rec in recs.items():
+        spec, inp, pd, cfg = ba_phase_inputs(rec, dev)
+        args = (inp["Rb"], inp["f"], inp["k1"], inp["cx"], inp["cy"], inp["u_i"], inp["u_j"],
+                inp["w"], inp["pij"], pd, float(cfg.sigma_huber), bool(cfg.residual_one_direction))
+        got, again, ref = kba.ba_normals(*args), kba.ba_normals(*args), kba.ba_normals_plain(*args)
+        ref64 = kba.ba_normals_plain(*(a.double() if a.dtype == torch.float32 else a
+                                       for a in args[:9]), *args[9:])
+        sync(dev)
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        err = ba_normals_error(got, ref)
+        err64, plain64 = ba_normals_error(got, ref64), ba_normals_error(ref, ref64)
+        times = {"kernel": time_ms(lambda: kba.ba_normals(*args), dev),
+                 "plain": time_ms(lambda: kba.ba_normals_plain(*args), dev)}
+        M = inp["w"].shape[1]
+        real = int((inp["w"] > 0).sum())
+        n2 = 2 * pd
+        nbytes = (spec.pb * M * (8 + 8 + 4) + spec.pb * 16 + spec.nb * 13 * 4
+                  + spec.pb * (n2 * n2 + n2 + 1) * 4)
+        flop = real * BA_FLOPS_PER_MATCH[pd]
+        bound, by = bound_ms(flop, nbytes, FP32_FLOPS)
+        log(f"ba_normals {name}: phase (nb {spec.nb}, pb {spec.pb}, M {M}, pd {pd}), {real} real "
+            f"matches of {spec.pb * M}: max scaled diff to plain {err:.3e}, to the plain version in "
+            f"float64 {err64:.3e} (the plain version's own {plain64:.3e}; gate: the larger of "
+            f"twice that and 1e-5), repeat "
+            f"launch bit-identical {repeat}, kernel {times['kernel']:.4f} ms, plain "
+            f"{times['plain']:.4f} ms | bound {bound * 1e3:.3f} us ({by}: {flop:.3e} float32 flop "
+            f"at 67 TFLOP/s, {nbytes / 1e6:.3f} MB at 3.35 TB/s), share {bound / times['kernel']:.3%}")
+        if not (repeat and err64 <= max(2 * plain64, 1e-5)):
+            raise AssertionError(f"ba_normals {name}: differs from its plain version or itself")
+        out[name] = dict(err=err, err64=err64, plain_err64=plain64, ms=times["kernel"], plain_ms=times["plain"], library_ms=None,
+                         bound_ms=bound, bound_by=by, shape=[spec.nb, spec.pb, M, pd],
+                         matches=real)
+    for name, rec in recs.items():
+        runs, walls = {}, {}
+        for label, graphs in (("eager", False), ("graph", True)):
+            sync(dev)
+            t0 = time.perf_counter()
+            runs[label] = tba.run_incremental_ba(*rec["args"], **dict(rec["kw"], graphs=graphs))
+            sync(dev)
+            walls[label] = time.perf_counter() - t0
+        same = all((a is None and b is None and c is None) or (torch.equal(a, b) and torch.equal(b, c))
+                   for a, b, c in zip(runs["eager"], runs["graph"], rec["out"]))
+        log(f"ba {name}: the whole bundle adjustment eager {walls['eager']:.4f} s, replayed from "
+            f"the cached graphs {walls['graph']:.4f} s; R, f, k1, cost bit-identical (eager, "
+            f"graphs, the stitch) {same}; cost {float(runs['graph'][3]):.6g}")
+        if not same:
+            raise AssertionError(f"ba {name}: the graph-replayed BA differs from the eager one")
+        out[name].update(eager_ba_s=walls["eager"], graph_ba_s=walls["graph"])
+    return out
 
 
 def require_launches(label: str, counts: dict, names, dev) -> None:
@@ -1263,7 +1418,7 @@ def phase_multipano(dev, n: int, f_true: float, w: int, h: int, env_hw, limit: i
             raise AssertionError(f"focal error {ferr:.3f} % >= 1 %")
         if not min(psnr.values()) >= psnr_min:
             raise AssertionError(f"PSNR {psnr} below {psnr_min} dB")
-    need = ("knn", "knn_pairs", "orient_hist", "descriptor")
+    need = ("knn", "knn_pairs", "orient_hist", "descriptor", "ba_normals")
     if compute_dtype == "bfloat16":
         need += ("knn_bf16", "knn_pairs_bf16")
     require_launches(label, counts, need, dev)
@@ -1353,7 +1508,7 @@ def phase_detectors(dev, n: int, f_true: float, w: int, h: int, env_hw, cutoff: 
             raise AssertionError(f"{name}: focal error {ferr:.3f} % or PSNR {psnr:.2f} dB "
                                  f"(gate {psnr_min:.2f})")
         runs_b2 = not name.startswith("orb")  # binary descriptors: no window phase
-        if dev.type == "cuda" and not (counts["knn"] > 0 and all(
+        if dev.type == "cuda" and not (counts["knn"] > 0 and counts["ba_normals"] > 0 and all(
                 (counts[k] > 0) == runs_b2 for k in ("orient_hist", "descriptor"))):
             raise AssertionError(f"{name}: unexpected kernel launches {counts}")
         out[name] = counts
@@ -1403,7 +1558,8 @@ def multichip_rank(rank: int, world: int, store: str, out_dir: str, dev_type: st
 def phase_multichip(dev, pano100, gate, single: dict, multi):
     """Phase 11, `stitch_multichip` (the multi-GPU path) on one card.
     11a: pano100 on an NCCL mesh of world size 1 in this process (gloo on
-    the CPU); 11b: the same on two ranks spawned over gloo, sharing the
+    the CPU), capturing its LM phase graphs anew under the process group;
+    11b: the same on two ranks spawned over gloo, sharing the
     card; 11c: phase 6's folder at world size 1 (the second pass and two
     projections through the sharded render). Each run gets phase 9's or
     phase 6's gates; 11a and each rank of 11b are held to phase 9's
@@ -1415,9 +1571,10 @@ def phase_multichip(dev, pano100, gate, single: dict, multi):
     import torch.distributed as dist
     import torch.multiprocessing as mp
 
+    from autopanostitch_tpu_torch.models import bundle
     from autopanostitch_tpu_torch.parallel import mesh as pmesh
 
-    need = ("knn", "orient_hist", "descriptor")
+    need = ("knn", "orient_hist", "descriptor", "ba_normals")
     backend = "nccl" if dev.type == "cuda" else "gloo"
     with tempfile.TemporaryDirectory(prefix="apst_mesh_") as tmp:
         dist.init_process_group(backend, init_method=f"file://{tmp}/store1", rank=0, world_size=1)
@@ -1425,9 +1582,17 @@ def phase_multichip(dev, pano100, gate, single: dict, multi):
             mesh = pmesh.make_mesh(dev, backend=backend)
             log(f"multichip: mesh rank {mesh.rank} of {mesh.size} on {mesh.device} over "
                 f"{mesh.backend}")
+            # a new multi-GPU process's first BA: its LM graphs are captured with the
+            # process group (NCCL's watchdog thread) alive
+            bundle._graphs.clear()
             rec_a, counts_a = multichip_pano100(f"multichip_{backend}1", dev, mesh, pano100, gate)
             same_stitch(f"multichip_{backend}1", rec_a, single, "pano100 (phase 9)")
             require_launches(f"multichip_{backend}1", counts_a, need, dev)
+            log(f"multichip_{backend}1: LM phase graphs captured under the {backend} process "
+                f"group {counts_a['ba_graph_captures']}, replayed "
+                f"{counts_a['ba_graph_replays']}")
+            if dev.type == "cuda" and counts_a["ba_graph_captures"] == 0:
+                raise AssertionError(f"multichip_{backend}1: no LM phase graph was captured")
             counts_c = phase_multipano(dev, *multi, mesh=mesh)
         finally:
             dist.destroy_process_group()
@@ -1519,7 +1684,7 @@ def main() -> int:
     phase_b1_shapes(dev, sizes["shapes_F"], sizes["n_img"])
     b2 = phase_b2(dev, *sizes["b2"])
     b2f = phase_b2_fused(dev, sizes["b2f"])
-    ring_counts, ring_feats = phase_slice(dev, *sizes["ring"])
+    ring_counts, ring_feats, ring_ba = phase_slice(dev, *sizes["ring"])
     runs = [ring_counts]
     runs += phase_ring_options(dev, *sizes["ring"], ring_feats, sizes["ring_gates"]).values()
     del ring_feats
@@ -1529,7 +1694,8 @@ def main() -> int:
     runs += phase_planar_models(dev, *sizes["planar"])
     det = phase_detectors(dev, *sizes["detectors"])
     runs += list(det.values())
-    pano100_counts, pano100_rec = phase_pano100(dev, *sizes["pano100"])
+    pano100_counts, pano100_rec, pano100_ba = phase_pano100(dev, *sizes["pano100"])
+    ba = phase_ba(dev, {"ring": ring_ba, "pano100": pano100_ba})
     runs += [pano100_counts, phase_cli(dev, *sizes["cli"])]
     multichip = phase_multichip(dev, sizes["pano100"][:5], sizes["pano100"][5], pano100_rec,
                                 sizes["multi"])
@@ -1613,6 +1779,27 @@ def main() -> int:
             if k != "library_ms"}, "library_ms": None,
          "launches_note": "phase 8's SURF and KAZE stitches"}
         for name in ("orient_hist", "descriptor")
+    ] + [
+        {"name": "ba_normals", "route": "cuda", "source": "autopanostitch_tpu_torch/csrc/ba_normals.cu",
+         "replaces": "autopanostitch_tpu/models/bundle.py:682",
+         "replaces_note": "pair_system, an XLA fusion in the JAX package's LM phase program: a "
+                          "hand kernel with no Pallas counterpart",
+         "launches": counts["ba_normals"], "multichip_launches": mc_counts["ba_normals"],
+         "graph_captures": counts["ba_graph_captures"],
+         "graph_replays": counts["ba_graph_replays"],
+         "max_abs_err": max(r["err"] for r in ba.values()),
+         "max_err_is": "largest |kernel - plain| over each entry's Cauchy-Schwarz scale",
+         "err_vs_float64": max(r["err64"] for r in ba.values()),
+         "plain_err_vs_float64": max(r["plain_err64"] for r in ba.values()),
+         **{k: ba["ring"][k] for k in keys}, "shape": ba["ring"]["shape"],
+         "pano100": {k: ba["pano100"][k] for k in keys + ("shape",)},
+         "ba_s": {name: {"eager": r["eager_ba_s"], "graph": r["graph_ba_s"]}
+                  for name, r in ba.items()},
+         "bound_unit": "the larger of float32 operations (BA_FLOPS_PER_MATCH x the real "
+                       "matches) at 67 TFLOP/s and bytes (matches, cameras, pairs in; blocks "
+                       "out) at 3.35 TB/s",
+         "launches_note": "every rotational stitch of phases 5-11, counting the launches the "
+                          "LM phase graphs replay"}
     ]}
     if REHEARSE:
         log(json.dumps(kernels))

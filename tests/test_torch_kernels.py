@@ -194,7 +194,8 @@ def test_library_is_named_by_source_hash():
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libapst_kernels_")
     assert p == _build.library_path()
     assert {s.name for s in _build.CSRC.glob("*.cu")} == {"knn.cu", "knn_wide.cu", "knn_bf16.cu",
-                                                           "sift_window.cu", "window_gather.cu"}
+                                                           "sift_window.cu", "window_gather.cu",
+                                                           "ba_normals.cu"}
     assert {"knn.cuh", "knn_bf16.cuh", "tma.cuh"} <= {s.name for s in _build._sources()}
 
 
