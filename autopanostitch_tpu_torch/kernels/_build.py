@@ -111,6 +111,10 @@ def _declare(lib):
     lib.apst_sift_descriptor.restype = I
     lib.apst_ba_normals.argtypes = [P] * 9 + [I, I, I, ctypes.c_float, I, P, P, P, P]
     lib.apst_ba_normals.restype = I
+    lib.apst_ba_system.argtypes = [P] * 12 + [I, I, I, I, ctypes.c_float, I, P, P, P, P, P]
+    lib.apst_ba_system.restype = I
+    lib.apst_noop.argtypes = [P]
+    lib.apst_noop.restype = I
     lib.apst_error_string.argtypes = [I]
     lib.apst_error_string.restype = ctypes.c_char_p
 

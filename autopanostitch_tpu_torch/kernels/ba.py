@@ -1,12 +1,16 @@
-"""`ba_normals`: the rotational bundle adjustment's per-pair normal
-equations — CUDA kernel wrapper and plain version.
+"""The rotational bundle adjustment's linearisation — CUDA kernel wrappers
+and plain versions.
 
-Replaces `pair_system` (`autopanostitch_tpu/models/bundle.py:682`), which
-the JAX package leaves to XLA (no Pallas kernel): for each pair of an LM
-phase, over its M matches, the bidirectional residual r (4), its Jacobian J
-(4 x 2pd) against [theta_i, f_i(, k1_i), theta_j, f_j(, k1_j)] at theta = 0,
-the Huber IRLS weights, the front-facing mask and the match weight, summed
-into the pair's J^T W J (2pd x 2pd), J^T W r (2pd) and robust cost.
+`ba_system` (the main path) computes what the JAX package's
+`build_normal_eqns` (`autopanostitch_tpu/models/bundle.py:715`) computes:
+the dense, undamped normal equations H (pd nb x pd nb), g (pd nb) and the
+robust cost of one LM iteration. `ba_normals` computes its per-pair part,
+`pair_system` (:682), which the JAX package leaves to XLA (no Pallas
+kernel): for each pair of an LM phase, over its M matches, the
+bidirectional residual r (4), its Jacobian J (4 x 2pd) against [theta_i,
+f_i(, k1_i), theta_j, f_j(, k1_j)] at theta = 0, the Huber IRLS weights,
+the front-facing mask and the match weight, summed into the pair's J^T W J
+(2pd x 2pd), J^T W r (2pd) and robust cost.
 
 The Jacobian is written in closed form (Brown-Lowe Eq. 20-23): with
 R = exp([theta]x) R_b, dR/dtheta_k at 0 is [e_k]x R_b, so a source rotation
@@ -17,14 +21,19 @@ clamp is 0, as autodiff gives it. `pair_residual_jac` is that closed form;
 the tests hold it against `torch.func.jacrev` of the residual written as the
 reference writes it.
 
-The kernel is `csrc/ba_normals.cu` (one block a pair, threads over the
-matches, a fixed-order tree reduction: a repeat launch is bit-identical).
-CUDA tensors launch it or raise; CPU tensors take `ba_normals_plain`.
+Kernels: `csrc/ba_system.cu` (per-chunk sums over each pair's real matches,
+then the dense system assembled from each camera's incidence list; no float
+atomics: a repeat launch is bit-identical) and, off the main path as its
+yardstick, `csrc/ba_normals.cu` (one block a pair). CUDA tensors launch
+them or raise; CPU tensors take `ba_system_plain` / `ba_normals_plain`.
+`ba_system_plain` is `ba_normals_plain` followed by `assemble_plain`, the
+one-hot einsum assembly that the LM used before `ba_system`.
 
-Launch counting: `launches` counts the kernel's runs on the device. A
+Launch counting: `launches` counts `ba_system`'s runs on the device. A
 launch recorded into a CUDA graph being captured is counted in `captured`
 instead; the graph's owner (`models/bundle._PhaseGraph`) adds the launches
-it recorded to `launches` at each replay, when they run.
+it recorded to `launches` at each replay, when they run. `normals_launches`
+counts `ba_normals`' eager launches.
 """
 
 from __future__ import annotations
@@ -35,8 +44,9 @@ import torch
 
 from autopanostitch_tpu_torch.kernels import _build
 
-launches = 0  # ba_normals kernel runs: eager launches plus those replayed by CUDA graphs
-captured = 0  # launches recorded into CUDA graphs while they were captured
+launches = 0  # ba_system runs: eager launches plus those replayed by CUDA graphs
+captured = 0  # ba_system launches recorded into CUDA graphs while they were captured
+normals_launches = 0  # ba_normals' eager launches
 
 
 def huber_w(r2, sigma: float):
@@ -111,22 +121,22 @@ def pair_residual_jac(Rb_i, Rb_j, f_i, f_j, k1_i, k1_j, cx_i, cy_i, cx_j, cy_j, 
     return torch.cat([r_ij, r_ji], -1), J, torch.stack([z_j, z_i], -1)
 
 
-def _check(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd: int):
+def _check(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd: int, name: str = "ba_normals"):
     nb = Rb.shape[0]
     pb, M = w.shape
     if pd not in (4, 5):
-        raise ValueError(f"ba_normals: pd must be 4 or 5, got {pd}")
+        raise ValueError(f"{name}: pd must be 4 or 5, got {pd}")
     if Rb.shape != (nb, 3, 3) or any(t.shape != (nb,) for t in (f, k1, cx, cy)):
-        raise ValueError("ba_normals: Rb must be (nb, 3, 3) and f, k1, cx, cy (nb,)")
+        raise ValueError(f"{name}: Rb must be (nb, 3, 3) and f, k1, cx, cy (nb,)")
     if u_i.shape != (pb, M, 2) or u_j.shape != (pb, M, 2) or pij.shape != (pb, 2):
-        raise ValueError("ba_normals: u_i, u_j must be (pb, M, 2), w (pb, M), pij (pb, 2)")
+        raise ValueError(f"{name}: u_i, u_j must be (pb, M, 2), w (pb, M), pij (pb, 2)")
     for t in (Rb, f, k1, cx, cy, u_i, u_j, w):
         if t.dtype != w.dtype or t.device != w.device:
-            raise ValueError("ba_normals: float inputs must share one dtype and device")
+            raise ValueError(f"{name}: float inputs must share one dtype and device")
     if w.dtype != torch.float32 and not (w.dtype == torch.float64 and w.device.type == "cpu"):
-        raise ValueError("ba_normals: float inputs must be float32 (or float64 on the CPU)")
+        raise ValueError(f"{name}: float inputs must be float32 (or float64 on the CPU)")
     if pij.dtype != torch.int64 or pij.device != w.device:
-        raise ValueError("ba_normals: pij must be int64 on the inputs' device")
+        raise ValueError(f"{name}: pij must be int64 on the inputs' device")
 
 
 def ba_normals_plain(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd: int, sigma: float,
@@ -157,11 +167,12 @@ def ba_normals_plain(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd: int, sigma: float,
 
 def ba_normals(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd: int, sigma: float,
                one_direction: bool):
-    """Per-pair normal equations of one LM phase (see `ba_normals_plain`).
+    """Per-pair normal equations of one LM phase (see `ba_normals_plain`);
+    off the main path since `ba_system`, its yardstick with `assemble_plain`.
     CUDA tensors (float32) launch `csrc/ba_normals.cu`, CPU tensors
     (float32 or float64) take the plain version. pij must index cameras < nb (not checked on the card: that
     would need a host sync)."""
-    global launches, captured
+    global normals_launches
     _check(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd)
     if w.device.type == "cpu":
         return ba_normals_plain(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd, sigma, one_direction)
@@ -179,8 +190,86 @@ def ba_normals(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd: int, sigma: float,
         *(t.data_ptr() for t in ins), pb, M, pd, ctypes.c_float(sigma), int(one_direction),
         JtJ.data_ptr(), Jtg.data_ptr(), cost.data_ptr(), stream)
     _build.check(err, "apst_ba_normals")
+    if not torch.cuda.is_current_stream_capturing():
+        normals_launches += 1
+    return JtJ, Jtg, cost
+
+
+def camera_map(pij, nb: int, dtype):
+    """The one-hot camera map E (pb, 2, nb) of a phase's pairs."""
+    return (pij[..., None] == torch.arange(nb, device=pij.device)).to(dtype)
+
+
+def assemble_plain(JtJ, Jtg, cost, E):
+    """The dense system (H (pd nb, pd nb), g (pd nb,), total cost) from the
+    pairs' blocks, added through the one-hot camera map E (pb, 2, nb)
+    (deterministic, no scatter)."""
+    pb, _, nb = E.shape
+    pd = JtJ.shape[-1] // 2
+    T = torch.einsum("psa,psrtc->ptarc", E, JtJ.reshape(pb, 2, pd, 2, pd))
+    H = torch.einsum("ptb,ptarc->arbc", E, T).reshape(nb * pd, nb * pd)
+    g = torch.einsum("psa,psr->ar", E, Jtg.reshape(pb, 2, pd)).reshape(nb * pd)
+    return H, g, cost.sum()
+
+
+def _check_lists(Rb, w, ext, inc_off, inc):
+    nb = Rb.shape[0]
+    pb = w.shape[0]
+    if nb < 1:
+        raise ValueError("ba_system: a phase needs at least one camera")
+    if ext.shape != (pb,) or inc_off.shape != (nb + 1,) or inc.shape != (2 * pb,):
+        raise ValueError("ba_system: ext must be (pb,), inc_off (nb + 1,) and inc (2 pb,)")
+    for t in (ext, inc_off, inc):
+        if t.dtype != torch.int64 or t.device != w.device:
+            raise ValueError("ba_system: ext, inc_off and inc must be int64 on the inputs' device")
+
+
+def ba_system_plain(Rb, f, k1, cx, cy, u_i, u_j, w, pij, ext, inc_off, inc, pd: int,
+                    sigma: float, one_direction: bool):
+    """Plain PyTorch version of `ba_system`: `ba_normals_plain`, then
+    `assemble_plain` (ext, inc_off and inc, which only steer the kernel's
+    work, are not read). Returns H (pd nb, pd nb), g (pd nb,), cost ()."""
+    E = camera_map(pij, Rb.shape[0], w.dtype)
+    return assemble_plain(*ba_normals_plain(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd, sigma,
+                                            one_direction), E)
+
+
+def ba_system(Rb, f, k1, cx, cy, u_i, u_j, w, pij, ext, inc_off, inc, pd: int, sigma: float,
+              one_direction: bool):
+    """The dense, undamped normal equations of one LM linearisation (see
+    `ba_normals_plain` for the inputs). ext (pb,) is each pair's match extent
+    (the last slot with w > 0, plus 1; 0 for padded pairs; slots past it
+    must have w = 0), inc_off (nb + 1,) and inc (2 pb,) each camera's
+    incidence list as CSR (entries 2 x pair + side, ascending), all int64
+    (`models/bundle._phase_spec` builds them). CUDA tensors (float32) launch
+    `csrc/ba_system.cu`, CPU tensors (float32 or float64) take the plain
+    version. pij and the lists must index cameras < nb and pairs < pb (not
+    checked on the card: that would need a host sync). Returns H, g, cost."""
+    global launches, captured
+    _check(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd, "ba_system")
+    _check_lists(Rb, w, ext, inc_off, inc)
+    if w.device.type == "cpu":
+        return ba_system_plain(Rb, f, k1, cx, cy, u_i, u_j, w, pij, ext, inc_off, inc, pd, sigma,
+                               one_direction)
+    if w.device.type != "cuda":
+        raise ValueError(f"ba_system: unsupported device {w.device}")
+    ins = [t.contiguous() for t in (Rb, f, k1, cx, cy, u_i, u_j, w, pij, ext, inc_off, inc)]
+    if ins[5].data_ptr() % 8 or ins[6].data_ptr() % 8:
+        raise ValueError("ba_system: u_i and u_j must be 8-byte aligned (float2 copies)")
+    nb = Rb.shape[0]
+    pb, M = w.shape
+    n = pd * nb
+    nrec = (2 * pd) ** 2 + 2 * pd + 1
+    buf = torch.empty(n * n + n + 1 + pb * nrec, dtype=torch.float32, device=w.device)
+    H, g, cost = buf[: n * n].view(n, n), buf[n * n: n * n + n], buf[n * n + n]
+    rec = buf[n * n + n + 1:]
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    err = _build.library().apst_ba_system(
+        *(t.data_ptr() for t in ins), nb, pb, M, pd, ctypes.c_float(sigma), int(one_direction),
+        rec.data_ptr(), H.data_ptr(), g.data_ptr(), cost.data_ptr(), stream)
+    _build.check(err, "apst_ba_system")
     if torch.cuda.is_current_stream_capturing():
         captured += 1
     else:
         launches += 1
-    return JtJ, Jtg, cost
+    return H, g, cost

@@ -8,9 +8,10 @@ match subsampling, incremental camera order.
 
 Device plane (torch): the incremental LM. Each phase works on the compact
 subsystem of the active cameras, padded to a bucketed shape as the
-reference pads it; its pairs' normal equations come from the `ba_normals`
-kernel (`kernels/ba.py`: closed-form Jacobians of the bidirectional
-residual), summed into a dense (pd*nb)^2 system solved by Cholesky, and the
+reference pads it; its dense (pd*nb)^2 normal equations come from the
+`ba_system` kernel (`kernels/ba.py`: closed-form Jacobians of the
+bidirectional residual, summed over each pair's real matches and assembled
+from each camera's incidence list) and are solved by Cholesky, and the
 accept/reject decision, the lambda schedule and the state update are
 `torch.where`s on the device, so an LM iteration never waits for the host.
 On CUDA a phase is one replay of a CUDA graph captured once per phase shape
@@ -352,7 +353,8 @@ def _statics(cfg: BundleConfig) -> _Statics:
 
 class _PhaseSpec(NamedTuple):
     """Host-built arrays of one LM phase, padded to its (nb, pb) shape:
-    ints = [cam_take (nb), pair_take (pb), pij (pb, 2)] and floats =
+    ints = [cam_take (nb), pair_take (pb), pij (pb, 2), ext (pb), inc_off
+    (nb + 1), inc (2 pb)] and floats =
     [cam_ok (nb), seed one-hot (nb), pair_ok (pb), cpinv (nb, nb),
     focal_frac, k1_cap, lam0]."""
 
@@ -365,13 +367,25 @@ class _PhaseSpec(NamedTuple):
     floats: np.ndarray
 
 
-def _phase_spec(n: int, loc_pairs, active, seed: int, cpinv, focal_frac: float, k1_cap: float,
-                lam0: float, iters: int, buckets=(64, 8)) -> _PhaseSpec:
+def pair_extents(w) -> np.ndarray:
+    """Each pair's match extent: the last slot with w > 0, plus 1 (0 for a
+    pair without one). w (P, M) numpy."""
+    real = np.asarray(w) > 0
+    return np.where(real.any(1), real.shape[1] - np.argmax(real[:, ::-1], axis=1), 0).astype(
+        np.int64)
+
+
+def _phase_spec(n: int, loc_pairs, extents, active, seed: int, cpinv, focal_frac: float,
+                k1_cap: float, lam0: float, iters: int, buckets=(64, 8)) -> _PhaseSpec:
     """One phase's compact subsystem: the active cameras and the pairs
     between them, padded as the reference's `phase_arrays` pads them (nb =
     _bucket(k, 64), pb = _bucket(pairs, 8); `buckets=None` keeps the exact
     sizes). Padded cameras repeat camera 0 under cam_ok = 0, padded pairs
-    pair 0 with weight 0. cpinv (k, k) or None (no focal coupling)."""
+    pair 0 with weight 0 and extent 0. extents (P,) are `pair_extents` of
+    loc_pairs' matches; each camera's incidence list holds the phase's
+    pairs that touch it as entries 2 x pair + side, in ascending pair order
+    (CSR: offsets inc_off, entries inc; padded pairs are in none). cpinv (k,
+    k) or None (no focal coupling)."""
     act = np.asarray(active, np.int64)
     in_act = np.zeros(n, bool)
     in_act[act] = True
@@ -386,6 +400,13 @@ def _phase_spec(n: int, loc_pairs, active, seed: int, cpinv, focal_frac: float, 
     pair_take[:q] = psel
     pij = np.zeros((pb, 2), np.int64)
     pij[:q] = local_of[loc_pairs[psel]]
+    ext = np.zeros(pb, np.int64)
+    ext[:q] = np.asarray(extents)[psel]
+    side_cam = pij[:q].reshape(-1)  # the camera of entry 2 x pair + side
+    inc = np.zeros(2 * pb, np.int64)
+    inc[: 2 * q] = np.argsort(side_cam, kind="stable")  # stable: pairs ascend in each list
+    inc_off = np.zeros(nb + 1, np.int64)
+    inc_off[1:] = np.cumsum(np.bincount(side_cam, minlength=nb))
     cam_ok = np.zeros(nb, np.float32)
     cam_ok[:k] = 1.0
     seed_1h = np.zeros(nb, np.float32)
@@ -398,32 +419,29 @@ def _phase_spec(n: int, loc_pairs, active, seed: int, cpinv, focal_frac: float, 
     floats = np.concatenate([cam_ok, seed_1h, pair_ok, cp.reshape(-1),
                              np.array([focal_frac, k1_cap, lam0], np.float32)])
     return _PhaseSpec(act, q, nb, pb, iters,
-                      np.concatenate([cam_take, pair_take, pij.reshape(-1)]), floats)
+                      np.concatenate([cam_take, pair_take, pij.reshape(-1), ext, inc_off, inc]),
+                      floats)
 
 
 def _phase_inputs(spec: _PhaseSpec, ints, floats, R, f, k1, cx, cy, u_i, u_j, w) -> dict:
     """The phase's device inputs: the spec's uploaded arrays (`ints`,
     `floats`, views) and its cameras and pairs gathered from the state."""
     nb, pb = spec.nb, spec.pb
-    cam_take, pair_take, pij = torch.split(ints, [nb, pb, 2 * pb])
+    cam_take, pair_take, pij, ext, inc_off, inc = torch.split(
+        ints, [nb, pb, 2 * pb, pb, nb + 1, 2 * pb])
     cam_ok, seed_1h, pair_ok, cpinv, sc = torch.split(floats, [nb, nb, pb, nb * nb, 3])
     return dict(Rb=R[cam_take], f=f[cam_take], k1=k1[cam_take], cx=cx[cam_take], cy=cy[cam_take],
                 u_i=u_i[pair_take], u_j=u_j[pair_take], w=w[pair_take] * pair_ok[:, None],
-                pij=pij.view(pb, 2), cam_ok=cam_ok, seed=seed_1h, cpinv=cpinv.view(nb, nb),
+                pij=pij.view(pb, 2), ext=ext, inc_off=inc_off, inc=inc, cam_ok=cam_ok, seed=seed_1h, cpinv=cpinv.view(nb, nb),
                 focal_frac=sc[0], k1_cap=sc[1], lam0=sc[2])
 
 
-def _normal_eqns(Rb, f, k1, inp: dict, E, pd: int, st: _Statics):
+def _normal_eqns(Rb, f, k1, inp: dict, pd: int, st: _Statics):
     """(H (pd nb, pd nb), g (pd nb,), robust cost) linearized at theta = 0:
-    the pairs' blocks from `ba_normals`, added into the dense system through
-    the one-hot camera map E (pb, 2, nb) (deterministic, no scatter)."""
-    JtJ, Jtg, cost = kba.ba_normals(Rb, f, k1, inp["cx"], inp["cy"], inp["u_i"], inp["u_j"],
-                                    inp["w"], inp["pij"], pd, st.sigma, st.one_direction)
-    pb, _, nb = E.shape
-    T = torch.einsum("psa,psrtc->ptarc", E, JtJ.reshape(pb, 2, pd, 2, pd))
-    H = torch.einsum("ptb,ptarc->arbc", E, T).reshape(nb * pd, nb * pd)
-    g = torch.einsum("psa,psr->ar", E, Jtg.reshape(pb, 2, pd)).reshape(nb * pd)
-    return H, g, cost.sum()
+    the `ba_system` kernel (deterministic, no scatter)."""
+    return kba.ba_system(Rb, f, k1, inp["cx"], inp["cy"], inp["u_i"], inp["u_j"], inp["w"],
+                         inp["pij"], inp["ext"], inp["inc_off"], inp["inc"], pd, st.sigma,
+                         st.one_direction)
 
 
 def _lm_phase(inp: dict, pd: int, iters: int, st: _Statics):
@@ -440,7 +458,6 @@ def _lm_phase(inp: dict, pd: int, iters: int, st: _Statics):
     dev = f.device
     okf = inp["cam_ok"]
     ok = okf > 0
-    E = (inp["pij"][..., None] == torch.arange(nb, device=dev)).to(f.dtype)
     # Brown-Lowe prior precision CpInv (the reference's buildBrownLowePrior)
     fbar = (f * okf).sum() / torch.clamp(okf.sum(), min=1.0)
     f_prior_w = 1.0 / ((fbar / st.focal_prior_frac) ** 2 + 1e-12)
@@ -463,7 +480,7 @@ def _lm_phase(inp: dict, pd: int, iters: int, st: _Statics):
     focal_frac, k1_cap = inp["focal_frac"], inp["k1_cap"]
 
     lam = inp["lam0"]
-    H, g, cost = _normal_eqns(Rb, f, k1, inp, E, pd, st)
+    H, g, cost = _normal_eqns(Rb, f, k1, inp, pd, st)
     for _ in range(iters):
         Hm = H * cm[:, None] * cm[None, :]
         gm = g * cm
@@ -489,7 +506,7 @@ def _lm_phase(inp: dict, pd: int, iters: int, st: _Statics):
         Rb_c = torch.where(ok[:, None, None], _orthonormalize(geo.so3_exp(dtheta) @ Rb), Rb)
         f_c = torch.where(ok, torch.clamp(f + df, st.f_lo, st.f_hi), f)
         k1_c = torch.where(ok, torch.clamp(k1 + dk1, -_K1_CLAMP, _K1_CLAMP), k1) if pd == 5 else k1
-        H_c, g_c, cost_c = _normal_eqns(Rb_c, f_c, k1_c, inp, E, pd, st)
+        H_c, g_c, cost_c = _normal_eqns(Rb_c, f_c, k1_c, inp, pd, st)
         pred = 0.5 * (lam * (d_flat * damp * d_flat).sum() + d_flat @ (cp @ d_flat)
                       - (d_flat * gm).sum())
         rho = (cost - cost_c) / torch.clamp(pred, min=1e-12)
@@ -538,7 +555,7 @@ class _PhaseGraph:
         for k, v in inp.items():
             self.inputs[k].copy_(v)
         self.graph.replay()
-        kba.launches += self.launches  # the ba_normals launches the graph holds ran again
+        kba.launches += self.launches  # the ba_system launches the graph holds ran again
         graph_replays += 1
         return self.outputs
 
@@ -563,11 +580,12 @@ def _run_phase(inp: dict, pd: int, iters: int, st: _Statics, graphs: bool):
     return graph(inp)
 
 
-def _phase_plan(f_init, loc_pairs, order, seed: int, cfg: BundleConfig):
+def _phase_plan(f_init, loc_pairs, extents, order, seed: int, cfg: BundleConfig):
     """The phases of `run_incremental_ba`: one a step of camera groups
     joining best-connected-first (focal coupling on), then the staged final
-    passes with focal caps (coupling off). Returns their specs and, for
-    each, the number of cameras it holds (None for the final passes)."""
+    passes with focal caps (coupling off). extents: `pair_extents` of the
+    pairs' matches. Returns their specs and, for each, the number of
+    cameras it holds (None for the final passes)."""
     n = len(f_init)
     f0 = float(np.median(f_init))
     if cfg.focal_smoothness_weight is None:
@@ -583,7 +601,7 @@ def _phase_plan(f_init, loc_pairs, order, seed: int, cfg: BundleConfig):
                cfg.incremental_lm_iters, upto) for upto in steps]
     phases += [(order, frac, False, _K1_STEP_CAP, final_iters, None)
                for frac in cfg.focal_step_fracs]
-    specs = [_phase_spec(n, loc_pairs, active, seed,
+    specs = [_phase_spec(n, loc_pairs, extents, active, seed,
                          _cpinv_focal(np.asarray(active), smooth_w, float(cfg.focal_mean_weight))
                          if couple else None, frac, k1_cap, float(cfg.lambda0), iters)
              for active, frac, couple, k1_cap, iters, _ in phases]
@@ -608,7 +626,7 @@ def run_incremental_ba(R0, f_init, cx, cy, u_i, u_j, w, loc_pairs, order, seed: 
     n = len(f_init)
     pd = 5 if with_k1 else 4
     st = _statics(cfg)
-    specs, uptos = _phase_plan(f_init, loc_pairs, order, seed, cfg)
+    specs, uptos = _phase_plan(f_init, loc_pairs, pair_extents(w), order, seed, cfg)
 
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)

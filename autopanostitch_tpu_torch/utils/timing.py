@@ -7,6 +7,9 @@
   a `jax.profiler` trace.
 - `report_device_memory`: the card's memory in use, the peak since the
   process began (or the last reset) and its capacity.
+- `graph_ms`, `launch_floor_ms`: a call's device time from a CUDA graph of
+  back-to-back calls, and an empty kernel's (the launch floor), for
+  `chip_smoke.py` and `tools/ba_probe.py`.
 
 The per-stage timer is `models/pipeline.StageTimer`, which ends each stage
 with a device synchronize.
@@ -89,3 +92,41 @@ def report_device_memory(out: Optional[TextIO] = None, device=None) -> Optional[
     print(f"Device memory: {used:.0f} / {limit:.0f} MB in use, peak {peak:.0f} MB, "
           f"{free / 1e6:.0f} MB free", file=out or sys.stdout)
     return {"used_mb": used, "limit_mb": limit, "peak_mb": peak}
+
+
+def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device time of one call of fn on the current CUDA device, ms: a CUDA
+    graph holding n back-to-back calls (captured after a warm-up on the
+    capture stream), replayed once to warm and then `reps` times between
+    CUDA events; the median replay over n. No host work of fn runs in a
+    replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return sorted(times)[len(times) // 2]
+
+
+def launch_floor_ms(n: int = 20) -> float:
+    """`graph_ms` of an empty kernel (`apst_noop` of the port's kernel
+    library): what a graph's kernel node costs with no work, ms."""
+    from autopanostitch_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    return graph_ms(lambda: _build.check(lib.apst_noop(torch.cuda.current_stream().cuda_stream),
+                                         "apst_noop"), n)

@@ -37,6 +37,9 @@ Phases, each printing its own lines:
      2048 keypoints, 80 px windows for both phases): raw histograms within
      1e-5 of each row's max, descriptors within 1e-4 (max) and 1e-6 (mean),
      a repeat launch bit-identical;
+  Every kernel time is the device's: CUDA events around a call with the
+  card kept busy by a sleep while the host enqueues it (`time_ms`), or a
+  CUDA graph of back-to-back calls (`graph_ms`, phase 9b).
   Phases 3-4b time each kernel in turns with its plain version, its library
   yardstick (3/3b: `torch.cdist` + `torch.topk`, Euclidean and without the
   masks; 4: the advanced indexing `src[L, Y, X]`; 4b: none, no PyTorch call
@@ -78,18 +81,23 @@ Phases, each printing its own lines:
      config: one panorama of 100, focal error < 1 %, PSNR >= 40 dB and >=
      the JAX package's CPU result less 3 dB (JAX_PANO100), the stage split;
   9b. the bundle adjustment of phases 5 and 9 again from their recorded
-     inputs: the `ba_normals` kernel (csrc/ba_normals.cu, the LM's per-pair
-     normal equations) against its plain version at each one's largest LM
-     phase (the ring: nb 64, pb 64, M 300; pano100: nb 128, pb 128, M 256;
-     pd 5), each entry's difference over its Cauchy-Schwarz scale: to the
-     plain version run in float64 no larger than twice the float32 plain
-     version's own (or 1e-5; at a converged state the residuals are small
-     differences of pixel coordinates, and float32 alone errs by ~1e-5 of
-     the cost there), a repeat launch bit-identical, timed beside its bound (the larger of its float32
-     operations at 67 TFLOP/s and its bytes; no PyTorch call computes it);
-     then each whole BA run eagerly and replayed from the cached CUDA graphs
-     of its LM phases: R, f, k1 and cost bit-identical to each other and to
-     the stitch's own;
+     inputs: the `ba_system` kernel (csrc/ba_system.cu, the LM's whole
+     linearisation: the dense H, g and cost) and, off the main path, the
+     `ba_normals` kernel (csrc/ba_normals.cu, per-pair blocks) against their
+     plain versions at each one's largest LM phase (the ring: nb 64, pb 64,
+     M 300; pano100: nb 128, pb 128, M 256; pd 5), each entry's difference
+     over its Cauchy-Schwarz scale: to the plain version run in float64 no
+     larger than twice the float32 plain version's own (or 1e-5; at a
+     converged state the residuals are small differences of pixel
+     coordinates, and float32 alone errs by ~1e-5 of the cost there), a
+     repeat launch bit-identical; `ba_system`, the per-pair linearisation
+     (`ba_normals` + one-hot einsums + the cost's sum) and `ba_normals`
+     timed on the device, each a launch from a CUDA graph of 20, beside an
+     empty kernel's (the launch floor) and the bound (the larger of float32
+     operations at 67 TFLOP/s and bytes; no PyTorch call computes it); then
+     each whole BA run eagerly and replayed from the cached CUDA graphs of
+     its LM phases: R, f, k1 and cost bit-identical to each other and to the
+     stitch's own;
   10. the command line, `python -m autopanostitch_tpu_torch.cli` on a
      folder of a 12-view ring, twice with one `--cache`: the second run
      resumes and writes the same files and panorama; then a stitch with
@@ -107,9 +115,9 @@ Phases, each printing its own lines:
      LSB on average); a failing rank fails the phase. The rehearsal runs
      11a and 11c over gloo on the CPU and 11b as two CPU ranks.
 Phases 5-11 each count the kernels' launches from 0 and fail if a kernel of
-the path never launched (in 11b on either rank); every rotational stitch
-must launch `ba_normals` (its count includes the launches that the LM
-phase graphs replay), and each prints its bundle_adjustment seconds and the
+the path never launched (in 11b on either rank) or if `ba_normals`, off the
+main path, did; every rotational stitch must launch `ba_system` (its count
+includes the launches that the LM phase graphs replay), and each prints its bundle_adjustment seconds and the
 graphs it captured and replayed. Then a JSON line of the kernels, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero without that line. This script imports nothing of JAX.
@@ -148,7 +156,8 @@ TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
-# ba_normals: float32 operations a match as `csrc/ba_normals.cu` writes them
+# ba_normals / ba_system: float32 operations a match as `csrc/ba_direction.cuh`
+# and `csrc/ba_normals.cu` write them
 # (an FMA counts 2), by pd: both directions' residual and closed-form
 # Jacobian (180 / 134 each), the weights (21) and the sums into JtJ's upper
 # triangle, Jtg and the cost (572 / 396)
@@ -224,16 +233,43 @@ def nvidia_smi() -> str:
         return f"nvidia-smi unavailable: {e}"
 
 
+@functools.lru_cache(maxsize=None)
+def sleep_cycles_per_ms() -> float:
+    """The card's `torch.cuda._sleep` cycles a millisecond, read once."""
+    import torch
+
+    torch.cuda._sleep(1000)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(2_000_000)
+    b.record()
+    b.synchronize()
+    return 2e6 / a.elapsed_time(b)
+
+
 def time_ms(fn, dev, reps: int = 5) -> float:
-    """Median of `reps` timed calls (CUDA events; host clock on the CPU)."""
+    """Median of `reps` timed calls, ms. On the card the device's time from
+    CUDA events: ahead of the start event a `torch.cuda._sleep` keeps the
+    card busy for twice the host's time to enqueue one call (at most 200
+    ms), so the wrapper's host work (checks, allocations, the launch) runs
+    while the card sleeps and not inside the timed span. The host clock on
+    the CPU."""
     import torch
 
     fn()  # warm-up
     times = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        cycles = int(min(2.0 * host_ms + 0.05, 200.0) * sleep_cycles_per_ms())
     for _ in range(reps):
         if dev.type == "cuda":
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
             a.record()
             fn()
             b.record()
@@ -244,6 +280,20 @@ def time_ms(fn, dev, reps: int = 5) -> float:
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
+
+
+GRAPH_LAUNCHES = 20  # calls a CUDA graph of `graph_ms` holds
+
+
+def graph_ms(fn, dev) -> float:
+    """Device time a call, ms: `utils.timing.graph_ms` (a CUDA graph of
+    GRAPH_LAUNCHES back-to-back calls, replay time over their number); the
+    host clock a call on the CPU (`time_ms`)."""
+    if dev.type != "cuda":
+        return time_ms(fn, dev)
+    from autopanostitch_tpu_torch.utils import timing
+
+    return timing.graph_ms(fn, GRAPH_LAUNCHES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -962,7 +1012,7 @@ def phase_slice(dev, n: int, f_true: float, w: int, h: int, env_hw):
         raise AssertionError(f"focal error {ferr:.3f} % >= 1 %")
     if not psnr >= 40.0:
         raise AssertionError(f"PSNR {psnr:.2f} dB < 40 dB")
-    require_launches("slice", counts, ("knn", "orient_hist", "descriptor", "ba_normals"), dev)
+    require_launches("slice", counts, ("knn", "orient_hist", "descriptor", "ba_system"), dev)
     split = features_split(iset.images, iset.sizes, dev)
     log("slice: features stage split s " + json.dumps(split))
     return counts, res.features, ba_call
@@ -1025,8 +1075,8 @@ def phase_ring_options(dev, n: int, f_true: float, w: int, h: int, env_hw, feats
     for name, fields in RING_OPTIONS.items():
         res, counts = run_stitch(f"ring_{name}", iset, config_with(config, fields), dev)
         ring_gates(f"ring_{name}", res, env, Rs, n, f_true, 40.0, gates and gates[name])
-        need = ("orient_hist", "descriptor", "ba_normals") + (("knn_bf16",) if name == "bf16"
-                                                             else ())
+        need = ("orient_hist", "descriptor", "ba_system") + (("knn_bf16",) if name == "bf16"
+                                                            else ())
         require_launches(f"ring_{name}", counts, need, dev)
         if name == "approximate" and counts["knn"]:
             raise AssertionError(f"the approximate matcher launched B1: {counts}")
@@ -1091,7 +1141,7 @@ def phase_cli(dev, n: int, f_true: float, w: int, h: int, env_hw):
     log(f"annotated: panorama {pano.shape}, annotated {ann.shape}, {drawn} pixels drawn")
     if ann.shape != pano.shape or drawn < 1000:
         raise AssertionError("the annotated panorama is missing or empty")
-    require_launches("annotated", counts, ("knn", "orient_hist", "descriptor", "ba_normals"), dev)
+    require_launches("annotated", counts, ("knn", "orient_hist", "descriptor", "ba_system"), dev)
     return counts
 
 
@@ -1119,7 +1169,7 @@ def phase_pano100(dev, n: int, f_true: float, w: int, h: int, env_hw, gate):
     psnr, _ = ring_gates("pano100", res, env, Rs, n, f_true, psnr_min, gate)
     log(f"pano100: PSNR {psnr:.3f} dB, {psnr - PANO100_TPU_PSNR:+.3f} dB from the JAX package's "
         f"TPU v5e record {PANO100_TPU_PSNR} dB (history, not a target)")
-    require_launches("pano100", counts, ("knn", "orient_hist", "descriptor", "ba_normals"), dev)
+    require_launches("pano100", counts, ("knn", "orient_hist", "descriptor", "ba_system"), dev)
     return counts, stitch_record(res), ba_call
 
 
@@ -1250,7 +1300,7 @@ def run_stitch(label: str, iset, cfg, dev, mesh=None):
         + f" total {wall:.3f}")
     log(f"{label}: kernel launches in the stitch {json.dumps(counts)}")
     log(f"{label}: bundle_adjustment {timer.report().get('bundle_adjustment', 0.0):.4f} s, "
-        f"ba_normals launches {counts['ba_normals']}, LM phase graphs captured "
+        f"ba_system launches {counts['ba_system']}, LM phase graphs captured "
         f"{counts['ba_graph_captures']}, replayed {counts['ba_graph_replays']}")
     return res, counts
 
@@ -1284,8 +1334,8 @@ def ba_phase_inputs(rec: dict, dev):
     from autopanostitch_tpu_torch.models import bundle as tba
 
     _, f_init, cx, cy, u_i, u_j, w, loc_pairs, order, seed, cfg = rec["args"]
-    spec = tba._phase_spec(len(f_init), loc_pairs, order, seed, None, cfg.focal_step_fracs[-1],
-                           tba._K1_STEP_CAP, float(cfg.lambda0), 0)
+    spec = tba._phase_spec(len(f_init), loc_pairs, tba.pair_extents(w), order, seed, None,
+                           cfg.focal_step_fracs[-1], tba._K1_STEP_CAP, float(cfg.lambda0), 0)
     R, f, k1, _ = rec["out"]
 
     def t(a, dtype=torch.float32):
@@ -1298,9 +1348,9 @@ def ba_phase_inputs(rec: dict, dev):
 
 
 def ba_normals_error(got, ref) -> float:
-    """The kernel's largest difference to the plain version, each entry over
-    its Cauchy-Schwarz scale: sqrt(JtJ_aa JtJ_bb) for JtJ, sqrt(JtJ_aa
-    cost) for Jtg, the cost for the cost."""
+    """`ba_normals`' largest difference to a reference, each entry over its
+    Cauchy-Schwarz scale: sqrt(JtJ_aa JtJ_bb) for JtJ, sqrt(JtJ_aa cost)
+    for Jtg, the cost for the cost."""
     JtJ, Jtg, cost = (x.double().cpu() for x in got)
     rJ, rg, rc = (x.double().cpu() for x in ref)
     d = (rJ.diagonal(dim1=1, dim2=2).clamp(min=0) + 1e-30).sqrt()
@@ -1309,56 +1359,122 @@ def ba_normals_error(got, ref) -> float:
                      ((cost - rc).abs() / (rc.abs() + 1e-30)).max()))
 
 
+def ba_system_error(got, ref) -> float:
+    """`ba_system`'s largest difference to a reference, each entry over its
+    Cauchy-Schwarz scale: sqrt(H_aa H_bb) for H, sqrt(H_aa cost) for g, the
+    cost for the cost."""
+    H, g, cost = (x.double().cpu() for x in got)
+    rH, rg, rc = (x.double().cpu() for x in ref)
+    d = (rH.diagonal().clamp(min=0) + 1e-30).sqrt()
+    return float(max(((H - rH).abs() / (d[:, None] * d[None, :])).max(),
+                     ((g - rg).abs() / (d * (rc.clamp(min=0) + 1e-30).sqrt())).max(),
+                     (cost - rc).abs() / (rc.abs() + 1e-30)))
+
+
 def phase_ba(dev, recs: dict) -> dict:
     """Phase 9b: the bundle adjustment of phases 5 (the ring) and 9
-    (pano100), from their recorded inputs. `ba_normals` against its plain
-    version at each one's largest LM phase (the ring: nb 64, pb 64, M 300;
-    pano100: nb 128, pb 128, M 256; pd 5), as accurate as the plain
-    version against the plain version in float64 (`ba_normals_error`: no
-    more than twice its error, or 1e-5) and a repeat launch bit-identical,
-    both timed (CUDA events, median
-    of 5) beside the kernel's bound; then each whole BA again, eagerly and
-    replayed from the cached CUDA graphs: R, f, k1 and cost bit-identical to
-    each other and to the stitch's own, each wall-timed (host clock, ending
-    in a synchronize). Returns {scene: record}."""
+    (pano100), from their recorded inputs, at each one's largest LM phase
+    (the ring: nb 64, pb 64, M 300; pano100: nb 128, pb 128, M 256; pd 5).
+    `ba_system` (the LM's linearisation: H, g, cost) and, off the main path,
+    `ba_normals` (per-pair blocks), each against its plain version and both
+    against the plain version in float64 (`ba_system_error`,
+    `ba_normals_error`: no more than twice the float32 plain version's own
+    error, or 1e-5), a repeat launch bit-identical. Times on the device:
+    `ba_system`, the per-pair linearisation (`ba_normals` + the one-hot einsum
+    assembly + the cost's sum) and `ba_normals` alone, each a launch from a
+    CUDA graph of GRAPH_LAUNCHES (`graph_ms`), beside an empty kernel's (the
+    launch floor) and the bound; the same kernels and the plain versions
+    with `time_ms`. Then each whole BA again, eagerly and replayed from the
+    cached CUDA graphs: R, f, k1 and cost bit-identical to each other and to
+    the stitch's own, each wall-timed (host clock, ending in a synchronize).
+    Returns {scene: record}."""
     import torch
 
     from autopanostitch_tpu_torch.kernels import ba as kba
     from autopanostitch_tpu_torch.models import bundle as tba
 
+    def f64(args):
+        return tuple(a.double() if torch.is_tensor(a) and a.dtype == torch.float32 else a
+                     for a in args)
+
+    smi = nvidia_smi()
+    if dev.type == "cuda":
+        from autopanostitch_tpu_torch.utils import timing
+
+        floor = timing.launch_floor_ms(GRAPH_LAUNCHES)
+    else:
+        floor = None
     out = {}
     for name, rec in recs.items():
         spec, inp, pd, cfg = ba_phase_inputs(rec, dev)
-        args = (inp["Rb"], inp["f"], inp["k1"], inp["cx"], inp["cy"], inp["u_i"], inp["u_j"],
-                inp["w"], inp["pij"], pd, float(cfg.sigma_huber), bool(cfg.residual_one_direction))
-        got, again, ref = kba.ba_normals(*args), kba.ba_normals(*args), kba.ba_normals_plain(*args)
-        ref64 = kba.ba_normals_plain(*(a.double() if a.dtype == torch.float32 else a
-                                       for a in args[:9]), *args[9:])
-        sync(dev)
-        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
-        err = ba_normals_error(got, ref)
-        err64, plain64 = ba_normals_error(got, ref64), ba_normals_error(ref, ref64)
-        times = {"kernel": time_ms(lambda: kba.ba_normals(*args), dev),
-                 "plain": time_ms(lambda: kba.ba_normals_plain(*args), dev)}
+        pair_args = tuple(inp[k] for k in ("Rb", "f", "k1", "cx", "cy", "u_i", "u_j", "w", "pij"))
+        opts = (pd, float(cfg.sigma_huber), bool(cfg.residual_one_direction))
+        sys_args = pair_args + (inp["ext"], inp["inc_off"], inp["inc"]) + opts
+        nrm_args = pair_args + opts
+        checks = {}
+        for label, kern, plain, error in (
+                ("ba_system", kba.ba_system, kba.ba_system_plain, ba_system_error),
+                ("ba_normals", kba.ba_normals, kba.ba_normals_plain, ba_normals_error)):
+            args = sys_args if label == "ba_system" else nrm_args
+            got, again, ref, ref64 = kern(*args), kern(*args), plain(*args), plain(*f64(args))
+            sync(dev)
+            checks[label] = dict(repeat=all(torch.equal(a, b) for a, b in zip(got, again)),
+                                 err=error(got, ref), err64=error(got, ref64),
+                                 plain_err64=error(ref, ref64))
+        E = kba.camera_map(inp["pij"], spec.nb, torch.float32)
+        times = {"ba_system": graph_ms(lambda: kba.ba_system(*sys_args), dev),
+                 "per_pair_path": graph_ms(lambda: kba.assemble_plain(*kba.ba_normals(*nrm_args), E),
+                                       dev),
+                 "ba_normals": graph_ms(lambda: kba.ba_normals(*nrm_args), dev),
+                 "ba_system_events": time_ms(lambda: kba.ba_system(*sys_args), dev),
+                 "ba_normals_events": time_ms(lambda: kba.ba_normals(*nrm_args), dev),
+                 "plain": time_ms(lambda: kba.ba_system_plain(*sys_args), dev),
+                 "normals_plain": time_ms(lambda: kba.ba_normals_plain(*nrm_args), dev)}
         M = inp["w"].shape[1]
         real = int((inp["w"] > 0).sum())
-        n2 = 2 * pd
-        nbytes = (spec.pb * M * (8 + 8 + 4) + spec.pb * 16 + spec.nb * 13 * 4
-                  + spec.pb * (n2 * n2 + n2 + 1) * 4)
+        slots = int(inp["ext"].sum())
+        n2, n = 2 * pd, pd * spec.nb
         flop = real * BA_FLOPS_PER_MATCH[pd]
-        bound, by = bound_ms(flop, nbytes, FP32_FLOPS)
-        log(f"ba_normals {name}: phase (nb {spec.nb}, pb {spec.pb}, M {M}, pd {pd}), {real} real "
-            f"matches of {spec.pb * M}: max scaled diff to plain {err:.3e}, to the plain version in "
-            f"float64 {err64:.3e} (the plain version's own {plain64:.3e}; gate: the larger of "
-            f"twice that and 1e-5), repeat "
-            f"launch bit-identical {repeat}, kernel {times['kernel']:.4f} ms, plain "
-            f"{times['plain']:.4f} ms | bound {bound * 1e3:.3f} us ({by}: {flop:.3e} float32 flop "
-            f"at 67 TFLOP/s, {nbytes / 1e6:.3f} MB at 3.35 TB/s), share {bound / times['kernel']:.3%}")
-        if not (repeat and err64 <= max(2 * plain64, 1e-5)):
-            raise AssertionError(f"ba_normals {name}: differs from its plain version or itself")
-        out[name] = dict(err=err, err64=err64, plain_err64=plain64, ms=times["kernel"], plain_ms=times["plain"], library_ms=None,
-                         bound_ms=bound, bound_by=by, shape=[spec.nb, spec.pb, M, pd],
-                         matches=real)
+        # ba_system: the slots within the extents, cameras, pairs, extents and lists in;
+        # H, g, cost out; plus the assembly's adds (each pair's four blocks and g parts)
+        sys_bytes = (slots * (8 + 8 + 4) + spec.nb * 13 * 4 + spec.pb * (16 + 8 + 16)
+                     + (spec.nb + 1) * 8 + (n * n + n + 1) * 4)
+        sys_bound, sys_by = bound_ms(flop + spec.npair * (n2 * n2 + n2 + 1), sys_bytes,
+                                     FP32_FLOPS)
+        nrm_bytes = (spec.pb * M * (8 + 8 + 4) + spec.pb * 16 + spec.nb * 13 * 4
+                     + spec.pb * (n2 * n2 + n2 + 1) * 4)
+        nrm_bound, nrm_by = bound_ms(flop, nrm_bytes, FP32_FLOPS)
+        c, cn = checks["ba_system"], checks["ba_normals"]
+        log(f"ba_system {name}: phase (nb {spec.nb}, pb {spec.pb}, M {M}, pd {pd}), {real} real "
+            f"matches of {spec.pb * M} slots ({slots} within the extents): max scaled diff to "
+            f"plain {c['err']:.3e}, to the plain version in float64 {c['err64']:.3e} (the plain "
+            f"version's own {c['plain_err64']:.3e}; gate: the larger of twice that and 1e-5), "
+            f"repeat launch bit-identical {c['repeat']} | device ms a launch (a CUDA graph of "
+            f"{GRAPH_LAUNCHES}): ba_system {times['ba_system']:.5f}, the per-pair path (ba_normals + "
+            f"einsums + sum) {times['per_pair_path']:.5f}, ba_normals alone {times['ba_normals']:.5f}, "
+            f"launch floor (empty kernel) {floor if floor is None else f'{floor:.5f}'}; "
+            f"events after a sleep: ba_system {times['ba_system_events']:.5f}, ba_normals "
+            f"{times['ba_normals_events']:.5f}; plain {times['plain']:.4f} | bound "
+            f"{sys_bound * 1e3:.3f} us ({sys_by}: {sys_bytes / 1e6:.3f} MB at 3.35 TB/s, "
+            f"{flop:.3e} float32 flop at 67 TFLOP/s), share {sys_bound / times['ba_system']:.3%} "
+            f"| {smi}")
+        log(f"ba_normals {name} (off the main path): max scaled diff to plain {cn['err']:.3e}, "
+            f"to float64 {cn['err64']:.3e} (plain's own {cn['plain_err64']:.3e}), repeat "
+            f"bit-identical {cn['repeat']}, bound {nrm_bound * 1e3:.3f} us ({nrm_by}), share "
+            f"{nrm_bound / times['ba_normals']:.3%}")
+        for label, ck in checks.items():
+            if not (ck["repeat"] and ck["err64"] <= max(2 * ck["plain_err64"], 1e-5)):
+                raise AssertionError(f"{label} {name}: differs from its plain version or itself")
+        out[name] = dict(err=c["err"], err64=c["err64"], plain_err64=c["plain_err64"],
+                         ms=times["ba_system"], events_ms=times["ba_system_events"],
+                         plain_ms=times["plain"], library_ms=None, bound_ms=sys_bound,
+                         bound_by=sys_by, per_pair_path_ms=times["per_pair_path"], launch_floor_ms=floor,
+                         shape=[spec.nb, spec.pb, M, pd], matches=real,
+                         normals=dict(err=cn["err"], err64=cn["err64"],
+                                      plain_err64=cn["plain_err64"], ms=times["ba_normals"],
+                                      events_ms=times["ba_normals_events"],
+                                      plain_ms=times["normals_plain"], library_ms=None,
+                                      bound_ms=nrm_bound, bound_by=nrm_by))
     for name, rec in recs.items():
         runs, walls = {}, {}
         for label, graphs in (("eager", False), ("graph", True)):
@@ -1379,8 +1495,12 @@ def phase_ba(dev, recs: dict) -> dict:
 
 
 def require_launches(label: str, counts: dict, names, dev) -> None:
+    """Fail unless every kernel of `names` launched in a run, or if
+    `ba_normals`, off the main path since `ba_system`, did."""
     if dev.type == "cuda" and not all(counts[k] > 0 for k in names):
         raise AssertionError(f"{label}: a kernel of the path never launched: {counts}")
+    if counts["ba_normals"]:
+        raise AssertionError(f"{label}: ba_normals launched on the main path: {counts}")
 
 
 def phase_multipano(dev, n: int, f_true: float, w: int, h: int, env_hw, limit: int,
@@ -1418,7 +1538,7 @@ def phase_multipano(dev, n: int, f_true: float, w: int, h: int, env_hw, limit: i
             raise AssertionError(f"focal error {ferr:.3f} % >= 1 %")
         if not min(psnr.values()) >= psnr_min:
             raise AssertionError(f"PSNR {psnr} below {psnr_min} dB")
-    need = ("knn", "knn_pairs", "orient_hist", "descriptor", "ba_normals")
+    need = ("knn", "knn_pairs", "orient_hist", "descriptor", "ba_system")
     if compute_dtype == "bfloat16":
         need += ("knn_bf16", "knn_pairs_bf16")
     require_launches(label, counts, need, dev)
@@ -1508,9 +1628,10 @@ def phase_detectors(dev, n: int, f_true: float, w: int, h: int, env_hw, cutoff: 
             raise AssertionError(f"{name}: focal error {ferr:.3f} % or PSNR {psnr:.2f} dB "
                                  f"(gate {psnr_min:.2f})")
         runs_b2 = not name.startswith("orb")  # binary descriptors: no window phase
-        if dev.type == "cuda" and not (counts["knn"] > 0 and counts["ba_normals"] > 0 and all(
+        if dev.type == "cuda" and not (counts["knn"] > 0 and counts["ba_system"] > 0 and all(
                 (counts[k] > 0) == runs_b2 for k in ("orient_hist", "descriptor"))):
             raise AssertionError(f"{name}: unexpected kernel launches {counts}")
+        require_launches(name, counts, (), dev)
         out[name] = counts
     return out
 
@@ -1574,7 +1695,7 @@ def phase_multichip(dev, pano100, gate, single: dict, multi):
     from autopanostitch_tpu_torch.models import bundle
     from autopanostitch_tpu_torch.parallel import mesh as pmesh
 
-    need = ("knn", "orient_hist", "descriptor", "ba_normals")
+    need = ("knn", "orient_hist", "descriptor", "ba_system")
     backend = "nccl" if dev.type == "cuda" else "gloo"
     with tempfile.TemporaryDirectory(prefix="apst_mesh_") as tmp:
         dist.init_process_group(backend, init_method=f"file://{tmp}/store1", rank=0, world_size=1)
@@ -1780,26 +1901,51 @@ def main() -> int:
          "launches_note": "phase 8's SURF and KAZE stitches"}
         for name in ("orient_hist", "descriptor")
     ] + [
+        {"name": "ba_system", "route": "cuda", "source": "autopanostitch_tpu_torch/csrc/ba_system.cu",
+         "replaces": "autopanostitch_tpu/models/bundle.py:715",
+         "replaces_note": "build_normal_eqns with pair_system (:682), XLA fusions in the JAX "
+                          "package's LM phase program: a hand kernel with no Pallas counterpart",
+         "launches": counts["ba_system"], "multichip_launches": mc_counts["ba_system"],
+         "graph_captures": counts["ba_graph_captures"],
+         "graph_replays": counts["ba_graph_replays"],
+         "max_abs_err": max(r["err"] for r in ba.values()),
+         "max_err_is": "largest |kernel - plain| of H, g, cost over each entry's Cauchy-Schwarz "
+                       "scale",
+         "err_vs_float64": max(r["err64"] for r in ba.values()),
+         "plain_err_vs_float64": max(r["plain_err64"] for r in ba.values()),
+         **{k: ba["ring"][k] for k in keys + ("events_ms", "per_pair_path_ms", "launch_floor_ms",
+                                              "shape")},
+         "pano100": {k: ba["pano100"][k] for k in keys + ("events_ms", "per_pair_path_ms", "shape")},
+         "ms_is": f"device time a launch: a CUDA graph of {GRAPH_LAUNCHES} launches, replay time "
+                  f"/ {GRAPH_LAUNCHES} (events_ms: CUDA events around one launch after a sleep; "
+                  "per_pair_path_ms: ba_normals + the one-hot einsum assembly + the cost's sum, the "
+                  "same graph method; launch_floor_ms: an empty kernel's)",
+         "ba_s": {name: {"eager": r["eager_ba_s"], "graph": r["graph_ba_s"]}
+                  for name, r in ba.items()},
+         "bound_unit": "the larger of float32 operations (BA_FLOPS_PER_MATCH x the real "
+                       "matches, + the assembly's adds) at 67 TFLOP/s and bytes (the match slots "
+                       "within the extents, cameras, pairs, lists in; H, g, cost out) at 3.35 TB/s",
+         "launches_note": "every rotational stitch of phases 5-11, counting the launches the "
+                          "LM phase graphs replay"},
         {"name": "ba_normals", "route": "cuda", "source": "autopanostitch_tpu_torch/csrc/ba_normals.cu",
          "replaces": "autopanostitch_tpu/models/bundle.py:682",
          "replaces_note": "pair_system, an XLA fusion in the JAX package's LM phase program: a "
                           "hand kernel with no Pallas counterpart",
+         "on_main_path": False,
          "launches": counts["ba_normals"], "multichip_launches": mc_counts["ba_normals"],
-         "graph_captures": counts["ba_graph_captures"],
-         "graph_replays": counts["ba_graph_replays"],
-         "max_abs_err": max(r["err"] for r in ba.values()),
+         "max_abs_err": max(r["normals"]["err"] for r in ba.values()),
          "max_err_is": "largest |kernel - plain| over each entry's Cauchy-Schwarz scale",
-         "err_vs_float64": max(r["err64"] for r in ba.values()),
-         "plain_err_vs_float64": max(r["plain_err64"] for r in ba.values()),
-         **{k: ba["ring"][k] for k in keys}, "shape": ba["ring"]["shape"],
-         "pano100": {k: ba["pano100"][k] for k in keys + ("shape",)},
-         "ba_s": {name: {"eager": r["eager_ba_s"], "graph": r["graph_ba_s"]}
-                  for name, r in ba.items()},
+         "err_vs_float64": max(r["normals"]["err64"] for r in ba.values()),
+         "plain_err_vs_float64": max(r["normals"]["plain_err64"] for r in ba.values()),
+         **{k: ba["ring"]["normals"][k] for k in keys + ("events_ms",)},
+         "shape": ba["ring"]["shape"],
+         "pano100": {k: ba["pano100"]["normals"][k] for k in keys + ("events_ms",)},
+         "ms_is": "phase 9b: device time a launch from a CUDA graph, as ba_system's",
          "bound_unit": "the larger of float32 operations (BA_FLOPS_PER_MATCH x the real "
                        "matches) at 67 TFLOP/s and bytes (matches, cameras, pairs in; blocks "
                        "out) at 3.35 TB/s",
-         "launches_note": "every rotational stitch of phases 5-11, counting the launches the "
-                          "LM phase graphs replay"}
+         "launches_note": "off the main path since ba_system: the launches are phase 9b's "
+                          "checks only, which no count includes"}
     ]}
     if REHEARSE:
         log(json.dumps(kernels))

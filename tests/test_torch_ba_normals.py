@@ -64,8 +64,8 @@ def _phase(sc, state, dev, active=None, buckets=(64, 8), couple=True, seed_cam=0
     n = len(sc["f"])
     active = np.arange(n) if active is None else np.asarray(active)
     cp = tba._cpinv_focal(active, 200.0, 100.0) if couple else None
-    spec = tba._phase_spec(n, sc["pairs"], active, seed_cam, cp, 0.01, 0.002, 1e-3, 8,
-                           buckets=buckets)
+    spec = tba._phase_spec(n, sc["pairs"], tba.pair_extents(sc["w"]), active, seed_cam, cp, 0.01,
+                           0.002, 1e-3, 8, buckets=buckets)
 
     def t(a, dtype=dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -240,9 +240,8 @@ def test_plain_normal_equations_match_jax(pd, one_direction):
     spec, inp = _phase(sc, state, "cpu", active=np.arange(8))  # padded: nb 64, pb 13 -> 16
     assert (spec.nb, spec.pb) == (64, 16) and spec.npair < spec.pb
     JtJ, Jtg, cost = (x.numpy() for x in _normals(inp, pd, one_direction))
-    E = (inp["pij"][..., None] == torch.arange(spec.nb)).float()
-    H, g, total = (x.numpy() for x in tba._normal_eqns(inp["Rb"], inp["f"], inp["k1"], inp, E,
-                                                       pd, _statics(one_direction)))
+    H, g, total = (x.numpy() for x in tba._normal_eqns(inp["Rb"], inp["f"], inp["k1"], inp, pd,
+                                                       _statics(one_direction)))
     (jJtJ, jJtg, jcost, jH, jg), body = _jax_phase(spec, inp, pd, one_direction)
     dJ = np.sqrt(np.einsum("pii->pi", jJtJ) + 1e-30)
     _close_scaled(JtJ, jJtJ, dJ[:, :, None] * dJ[:, None, :], 1e-5, "JtJ")
@@ -297,8 +296,7 @@ def test_bucketed_phase_matches_unpadded(pd):
     runs = []
     for buckets in ((64, 8), None):
         spec, inp = _phase(sc, state, "cpu", active=active, buckets=buckets, seed_cam=5)
-        E = (inp["pij"][..., None] == torch.arange(spec.nb)).float()
-        H, g, cost = tba._normal_eqns(inp["Rb"], inp["f"], inp["k1"], inp, E, pd, _statics())
+        H, g, cost = tba._normal_eqns(inp["Rb"], inp["f"], inp["k1"], inp, pd, _statics())
         one = tba._lm_phase(inp, pd, 1, _statics())
         whole = tba._lm_phase(inp, pd, 8, _statics())
         runs.append((spec, H[: k * pd, : k * pd], g[: k * pd], cost, one, whole))
