@@ -4,7 +4,7 @@ The reference computes in full float32 (its geometry passes
 `Precision.HIGHEST` everywhere, `DESIGN.md` "Numerics"). On a GPU, PyTorch
 keeps float32 matmuls exact by default but runs float32 convolutions
 through cuDNN in TF32, which would put SIFT's separable Gaussian
-(`ops/sift.gaussian_blur`) at ~3 decimal digits. Both switches are set
+(`ops/sampling.gaussian_blur`) at ~3 decimal digits. Both switches are set
 off at import.
 
 There is no fallback between devices: asking for CUDA on a machine

@@ -5,7 +5,8 @@ and one more `nvcc` links the objects into a shared library with a plain C
 interface (no PyTorch headers: the build takes about a minute, most of it
 B1's template instances, split over `knn.cu`, `knn_wide.cu` and
 `knn_bf16.cu` so that three `nvcc`s share them, where a
-`torch.utils.cpp_extension` build of one small file took minutes). The library lands in
+`torch.utils.cpp_extension` build of one small file took minutes). A source
+may add flags of its own (`SOURCE_FLAGS`). The library lands in
 `autopanostitch_tpu_torch/_build/`, named by a hash of the sources (every
 `*.cu` and every header, `*.cuh`, they include) and the flags, so a changed
 source rebuilds and an unchanged one loads at once.
@@ -31,6 +32,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# flags of one source only: the render kernels round every product and sum
+# on its own, as PyTorch's elementwise operators of their plain versions do
+SOURCE_FLAGS = {"render.cu": ["-fmad=false"]}
 
 _lock = threading.Lock()
 _lib = None
@@ -63,6 +67,7 @@ def library_path() -> pathlib.Path:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(ARCH_FLAGS + FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     return BUILD_DIR / f"libapst_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -79,7 +84,8 @@ def build() -> pathlib.Path:
         for src in sorted(CSRC.glob("*.cu")):
             objs.append(os.path.join(work, src.stem + ".o"))
             procs.append(subprocess.Popen(
-                [nvcc()] + ARCH_FLAGS + FLAGS + ["-I", str(CSRC), "-c", "-o", objs[-1], str(src)],
+                [nvcc()] + ARCH_FLAGS + FLAGS + SOURCE_FLAGS.get(src.name, [])
+                + ["-I", str(CSRC), "-c", "-o", objs[-1], str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         logs = [p.communicate()[0] for p in procs]
         build_log = "".join(logs)
@@ -98,7 +104,7 @@ def build() -> pathlib.Path:
 
 
 def _declare(lib):
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.apst_knn.argtypes = [P, P, P, I, P, P, I, I, I, I, P, P, P, P, P]
     lib.apst_knn.restype = I
     lib.apst_knn_pairs.argtypes = [P, P, I, I, I, P, I, I, I, P, P, P, P]
@@ -113,6 +119,13 @@ def _declare(lib):
     lib.apst_ba_normals.restype = I
     lib.apst_ba_system.argtypes = [P] * 12 + [I, I, I, I, ctypes.c_float, I, P, P, P, P, P]
     lib.apst_ba_system.restype = I
+    lib.apst_render_sample.argtypes = ([P, I, I, I, I, I] + [P] * 7 + [I] * 7 + [F] * 3
+                                       + [P, F] + [P] * 5)
+    lib.apst_render_sample.restype = I
+    lib.apst_mb_reduce.argtypes = [P, P, P] + [I] * 6 + [P, P, I, P, P, I, P, I, P, P]
+    lib.apst_mb_reduce.restype = I
+    lib.apst_mb_collapse.argtypes = [P, P, P] + [I] * 4 + [P, P, I, I, P, P, I, P, P, I, I] + [P] * 4
+    lib.apst_mb_collapse.restype = I
     lib.apst_noop.argtypes = [P]
     lib.apst_noop.restype = I
     lib.apst_error_string.argtypes = [I]

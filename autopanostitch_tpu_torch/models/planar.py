@@ -79,12 +79,11 @@ def planar_canvas_bounds(H_abs: np.ndarray, sizes: np.ndarray, reachable: np.nda
     return Hc, Wc, float(x0), float(y0), scale
 
 
-def composite_band(images, feathers, H_inv_canvas, valid, gains, band_h: int, out_w: int,
-                   x0: float, y0: float, blend_mode: str = "linear", bands: int = 3,
-                   interp: str = "bilinear"):
-    """One canvas row band of band_h rows starting at world row y0: warp
-    every image (gain applied, feather as the 4th channel) and blend.
-    Returns (uint8 (band_h, out_w, 3), covered (band_h, out_w)) tensors."""
+def warp_band(images, feathers, H_inv_canvas, valid, gains, band_h: int, out_w: int,
+              x0: float, y0: float, interp: str = "bilinear"):
+    """One canvas row band of band_h rows starting at world row y0, every
+    image warped into it (gain applied, its feather the weight): colours
+    (N, band_h, out_w, 3) and weights (N, band_h, out_w) tensors."""
     N = images.shape[0]
     dev = images.device
     okf = valid.float()
@@ -95,20 +94,28 @@ def composite_band(images, feathers, H_inv_canvas, valid, gains, band_h: int, ou
                                   xs, ys, fine)
     ws = torch.clamp(col4[..., 3], min=0.0) * okf[:, None, None]
     cols = col4[..., :3] * okf[:, None, None, None]
-    if blend_mode == "multiband":
-        band = blend_ops.multiband_blend(cols, ws, bands=bands)
-        wsum = ws.sum(0)
-    else:
-        band = torch.zeros_like(cols[0])
-        wsum = torch.zeros_like(ws[0])
-        for k in range(N):  # in image order, as the reference's scan
-            if blend_mode == "linear":
-                band = band + cols[k] * ws[k][..., None]
-            else:  # 'none': the last writer wins (composeNonePolicy 'last')
-                band = torch.where((ws[k] > 0)[..., None], cols[k], band)
-            wsum = wsum + ws[k]
+    return cols, ws
+
+
+def composite_band(images, feathers, H_inv_canvas, valid, gains, band_h: int, out_w: int,
+                   x0: float, y0: float, blend_mode: str = "linear", bands: int = 3,
+                   interp: str = "bilinear"):
+    """One canvas row band (`warp_band`), blended.
+    Returns (uint8 (band_h, out_w, 3), covered (band_h, out_w)) tensors."""
+    cols, ws = warp_band(images, feathers, H_inv_canvas, valid, gains, band_h, out_w, x0, y0,
+                         interp)
+    if blend_mode == "multiband":  # the render kernels' pyramid, uint8 finish included
+        return blend_ops.multiband_blend(cols, ws, bands=bands, to_u8=True)
+    band = torch.zeros_like(cols[0])
+    wsum = torch.zeros_like(ws[0])
+    for k in range(cols.shape[0]):  # in image order, as the reference's scan
         if blend_mode == "linear":
-            band = band / torch.clamp(wsum, min=1e-8)[..., None]
+            band = band + cols[k] * ws[k][..., None]
+        else:  # 'none': the last writer wins (composeNonePolicy 'last')
+            band = torch.where((ws[k] > 0)[..., None], cols[k], band)
+        wsum = wsum + ws[k]
+    if blend_mode == "linear":
+        band = band / torch.clamp(wsum, min=1e-8)[..., None]
     covered = wsum > 1e-3
     band = band * covered[..., None]
     return (torch.clamp(band, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8), covered

@@ -4,10 +4,12 @@ reference.
 
 Host control plane as in the reference: camera bounds on the surface
 (sampled on the device), reference-camera choice and canvas sizing, and
-per-tile contributor selection. The tiles render in batches: per tile,
-canvas pixel -> world ray -> every contributor's camera -> sampling
-(nearest, bilinear, bicubic, or bilinear taps on the 2x bicubic upsample)
--> multiband, linear or none-* blend -> uint8.
+per-tile contributor selection. The tiles render on `kernels/render.py`
+(hand kernels on the card), as many a launch as the card's memory allows:
+per tile, canvas pixel -> world ray -> every contributor's camera ->
+sampling (nearest, bilinear, bicubic, or bilinear taps on the 2x bicubic
+upsample) -> multiband (`ops/blend`), linear or none-* blend -> uint8; the
+canvas is assembled on the device and copied to the host once.
 
 The bicubic2x upsample (Keys a = -0.5, `jax.image.resize` semantics, see
 `ops/sampling.py`) runs ONCE per image here, where the reference resizes
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from autopanostitch_tpu_torch.config import RenderConfig
+from autopanostitch_tpu_torch.kernels import render as render_kernels
 from autopanostitch_tpu_torch.ops import blend as blend_ops
 from autopanostitch_tpu_torch.ops import geometry as geo
 from autopanostitch_tpu_torch.ops import projections as proj
@@ -239,80 +242,20 @@ def tile_contributors(canvas: dict, R, K, sizes, tile: tuple,
     return sel.astype(np.int32), ok, origins.astype(np.float32)
 
 
-def _blend(cols, ws, blend_mode: str, bands: int):
-    """Blend Tb tiles of C contributors: cols (Tb, C, th, tw, 3), ws (Tb, C,
-    th, tw) -> (tile (Tb, th, tw, 3), wsum (Tb, th, tw)). linear and none-*
-    accumulate over the contributors in order, as the reference's scan."""
-    if blend_mode == "multiband":
-        return blend_ops.multiband_blend(cols, ws, bands=bands), ws.sum(1)
-    acc = torch.zeros_like(cols[:, 0])
-    if blend_mode == "linear":
-        wsum = torch.zeros_like(ws[:, 0])
-        for c in range(cols.shape[1]):
-            acc = acc + cols[:, c] * ws[:, c, ..., None]
-            wsum = wsum + ws[:, c]
-        return acc / torch.clamp(wsum, min=1e-8)[..., None], wsum
-    # none-last | none-first | none-maxangle (`fuseTile` :863-914)
-    policy = blend_mode.split("-")[1]
-    wsum = torch.zeros_like(ws[:, 0])
-    best = torch.zeros_like(ws[:, 0])
-    for c in range(cols.shape[1]):
-        w = ws[:, c]
-        valid = w > 1e-6
-        if policy == "first":
-            write = valid & (wsum <= 1e-6)
-        elif policy == "maxangle":
-            write = valid & (w > best)
-        else:
-            write = valid
-        acc = torch.where(write[..., None], cols[:, c], acc)
-        best = torch.where(write, w, best)
-        wsum = wsum + w
-    return acc, wsum
-
-
-BLENDS = ("multiband", "linear", "none-last", "none-first", "none-maxangle")
-INTERPS = ("nearest", "bilinear", "bicubic", "bicubic2x")
-
-
-def _render_tiles(images4, fine4, R, K, gains, k1, sel, sel_ok, origins, canvas, tile_h, tile_w,
-                  blend_mode, bands, angle_power, interp):
-    """Render a batch of Tb tiles: (uint8 (Tb, th, tw, 3), covered (Tb, th, tw))."""
-    dev = images4.device
-    Tb, C = sel.shape
-    ty, tx = torch.meshgrid(torch.arange(tile_h, device=dev, dtype=torch.float32),
-                            torch.arange(tile_w, device=dev, dtype=torch.float32),
-                            indexing="ij")
-    xp = tx.reshape(1, -1) + origins[:, 0:1]
-    yp = ty.reshape(1, -1) + origins[:, 1:2]
-    d = proj.pano_to_ray(canvas["mode"], xp, yp, canvas["f_pan"], canvas["x0"], canvas["y0"],
-                         _t(canvas["R_ref"], dev))
-    sl = sel.long()
-    okf = sel_ok.float()
-    R_s, K_s = R[sl], K[sl]  # (Tb, C, 3, 3)
-    g_s = gains[sl] * okf[..., None]
-    u, v, front, cosang = proj.project_ray_to_camera(
-        d[:, None], R_s, K_s, k1=None if k1 is None else k1[sl]
-    )  # (Tb, C, P)
-    col4, valid = samp.sample_indexed(interp, images4, sl, u, v, fine4)
-    wf = torch.clamp(col4[..., 3], min=0.0)
-    w_ang = torch.where(front, cosang, torch.zeros_like(cosang)) ** angle_power
-    w = w_ang * torch.clamp(wf, min=1e-4) * valid * front * okf[..., None]
-    col = col4[..., :3] * g_s[:, :, None, :]
-    tile, wsum = _blend(col.reshape(Tb, C, tile_h, tile_w, 3), w.reshape(Tb, C, tile_h, tile_w),
-                        blend_mode, bands)
-    covered = wsum > 1e-3
-    tile = tile * covered[..., None]
-    return (torch.clamp(tile, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8), covered
+BLENDS = tuple(render_kernels.BLENDS)
+INTERPS = tuple(render_kernels.INTERPS)
+_PLAIN_TILES_PER_BATCH = 8  # the CPU's batch: the plain versions' temporaries are large
 
 
 def render_rotational(images, feathers, R, K, canvas: dict, gains=None,
                       blend_mode: str = "multiband", bands: int = 3, tile: tuple = (512, 512),
                       angle_power: float = 1.0, sizes=None, max_contributors=None,
-                      interp: str = "bicubic2x", k1=None, tiles_per_batch: int = 8):
+                      interp: str = "bicubic2x", k1=None, tiles_per_batch: int | None = None):
     """Full rotational panorama: (panorama (Hc, Wc, 3) uint8, coverage (Hc,
     Wc) bool) numpy. images (N, H, W, 3) / feathers (N, H, W) tensors; R, K,
     gains, sizes, k1 numpy. blend_mode one of BLENDS, interp one of INTERPS.
+    The canvas is assembled on the images' device and copied to the host
+    once (`render_tile_list` for tiles_per_batch).
 
     The feather rides as a 4th channel so it shares the colour taps. With
     bicubic2x the 2x Keys upsample runs once per image here, where the
@@ -325,7 +268,6 @@ def render_rotational(images, feathers, R, K, canvas: dict, gains=None,
         raise ValueError(f"unknown interpolation {interp!r}; one of {INTERPS}")
     dev = images.device
     n = images.shape[0]
-    Hc, Wc = canvas["Hc"], canvas["Wc"]
     th, tw = tile
     if gains is None:
         gains = np.ones((n, 3), np.float32)
@@ -336,41 +278,78 @@ def render_rotational(images, feathers, R, K, canvas: dict, gains=None,
                                              device=dev)
     tiles, covs = render_tile_list(images, feathers, R, K, gains, k1, sel, sel_ok, origins, canvas,
                                    tile, blend_mode, bands, angle_power, interp, tiles_per_batch)
-    return assemble_tiles(tiles, covs, origins, Hc, Wc)
+    pano, cover = assemble_tiles(tiles, covs, origins, canvas["Hc"], canvas["Wc"])
+    return pano.cpu().numpy(), cover.cpu().numpy()
+
+
+def _tiles_per_launch(T: int, C: int, tile: tuple, blend_mode: str, device) -> int:
+    """Tiles a launch: on the card as many as half its free memory holds
+    (multiband's slots and pyramid, 4/3 of level 0's 16 bytes a slot and
+    pixel, or the uint8 tile), on the CPU `_PLAIN_TILES_PER_BATCH`."""
+    if device.type != "cuda":
+        return _PLAIN_TILES_PER_BATCH
+    px = tile[0] * tile[1]
+    per_tile = C * px * 16 * 4 // 3 + px * 8 if blend_mode == "multiband" else px * 4
+    free, _ = torch.cuda.mem_get_info(device)
+    return max(1, min(T, int(0.5 * (free - 256e6)) // per_tile))
 
 
 def render_tile_list(images, feathers, R, K, gains, k1, sel, sel_ok, origins, canvas: dict,
                      tile: tuple, blend_mode: str, bands: int, angle_power: float, interp: str,
-                     tiles_per_batch: int = 8):
+                     tiles_per_batch: int | None = None):
     """Render the tiles of a list (sel (T, C), sel_ok (T, C), origins (T, 2)
-    numpy, as `tile_contributors` gives them) `tiles_per_batch` at a time:
-    (uint8 (T, th, tw, 3), covered (T, th, tw)) numpy. images (N, H, W, 3)
-    / feathers (N, H, W) tensors; R, K, gains, k1 numpy."""
+    numpy, as `tile_contributors` gives them): (uint8 (T, th, tw, 3),
+    covered (T, th, tw)) tensors on the images' device. images (N, H, W, 3)
+    / feathers (N, H, W) tensors; R, K, gains, k1 numpy. Each launch of
+    `kernels.render` takes tiles_per_batch tiles (None: as many as the
+    card's memory allows, `_PLAIN_TILES_PER_BATCH` on the CPU)."""
     dev = images.device
     th, tw = tile
+    sel = np.asarray(sel, np.int32)
+    T, C = sel.shape
+    if T and (sel.min() < 0 or sel.max() >= images.shape[0]):
+        raise ValueError("render_tile_list: a tile names an image outside the stack")
     images4 = torch.cat([images, feathers[..., None]], dim=-1)
     fine4 = samp.upsample2x_cubic(images4) if interp == "bicubic2x" else None
     R_d, K_d, g_d = _t(R, dev), _t(K, dev), _t(gains, dev)
     k1_d = None if k1 is None else _t(k1, dev)
-    tiles = [np.zeros((0, th, tw, 3), np.uint8)]
-    covs = [np.zeros((0, th, tw), bool)]
-    for s in range(0, len(sel), tiles_per_batch):
-        e = s + tiles_per_batch
-        t_u8, cov = _render_tiles(
-            images4, fine4, R_d, K_d, g_d, k1_d, _t(sel[s:e], dev, torch.int32),
-            _t(sel_ok[s:e], dev, torch.bool), _t(origins[s:e], dev), canvas, th, tw,
-            blend_mode, bands, angle_power, interp,
-        )
-        tiles.append(t_u8.cpu().numpy())
-        covs.append(cov.cpu().numpy())
-    return np.concatenate(tiles), np.concatenate(covs)
+    sel_d, ok_d, org_d = _t(sel, dev, torch.int32), _t(sel_ok, dev, torch.bool), _t(origins, dev)
+    tb = tiles_per_batch or _tiles_per_launch(T, C, tile, blend_mode, dev)
+    tiles, covs = [], []
+    for s in range(0, T, tb):
+        e = s + tb
+        out = render_kernels.render_sample(
+            images4, fine4, R_d, K_d, g_d, k1_d, sel_d[s:e], ok_d[s:e], org_d[s:e], canvas, th, tw,
+            blend_mode, angle_power, interp)
+        if blend_mode == "multiband":
+            out = blend_ops.multiband_blend(*out, bands=bands, to_u8=True)
+        tiles.append(out[0])
+        covs.append(out[1])
+    if not tiles:
+        return (torch.zeros((0, th, tw, 3), dtype=torch.uint8, device=dev),
+                torch.zeros((0, th, tw), dtype=torch.bool, device=dev))
+    return torch.cat(tiles), torch.cat(covs)
 
 
-def assemble_tiles(tiles: np.ndarray, covs: np.ndarray, origins: np.ndarray, Hc: int, Wc: int):
-    """Host canvas assembly from the tile stack."""
+def assemble_tiles(tiles, covs, origins: np.ndarray, Hc: int, Wc: int):
+    """Canvas assembly from the tile stack: (panorama (Hc, Wc, 3) uint8,
+    coverage (Hc, Wc) bool), numpy from numpy tiles, on the tiles' device
+    from tensors (one copy when the tiles are `tile_contributors`' whole
+    grid in its order)."""
     th, tw = covs.shape[1:3]
-    pano = np.zeros((Hc, Wc, 3), np.uint8)
-    cover = np.zeros((Hc, Wc), bool)
+    if torch.is_tensor(tiles):
+        nr, nc = -(-Hc // th), -(-Wc // tw)
+        R0, C0 = np.meshgrid(np.arange(nr) * th, np.arange(nc) * tw, indexing="ij")
+        grid = np.stack([C0.ravel(), R0.ravel()], -1)
+        if len(origins) == nr * nc and np.array_equal(np.asarray(origins), grid):
+            pano = tiles.reshape(nr, nc, th, tw, 3).transpose(1, 2).reshape(nr * th, nc * tw, 3)
+            cover = covs.reshape(nr, nc, th, tw).transpose(1, 2).reshape(nr * th, nc * tw)
+            return pano[:Hc, :Wc].contiguous(), cover[:Hc, :Wc].contiguous()
+        pano = torch.zeros((Hc, Wc, 3), dtype=torch.uint8, device=tiles.device)
+        cover = torch.zeros((Hc, Wc), dtype=torch.bool, device=tiles.device)
+    else:
+        pano = np.zeros((Hc, Wc, 3), np.uint8)
+        cover = np.zeros((Hc, Wc), bool)
     for t in range(len(origins)):
         ox, oy = int(origins[t, 0]), int(origins[t, 1])
         h = min(th, Hc - oy)

@@ -1,17 +1,18 @@
 """Linear and Burt-Adelson multiband blending (port of `ops/blend.py`).
 
 Contributors stack along a leading axis; any dimensions before it are
-batch dimensions (the renderer blends many tiles at once).
+batch dimensions (the renderer blends many tiles at once). The multiband
+blend runs on `kernels/render.py` (its CUDA kernels on the card, its plain
+version on the CPU).
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 
-from autopanostitch_tpu_torch.ops.sampling import resize_axis
-from autopanostitch_tpu_torch.ops.sift import gaussian_blur
+from autopanostitch_tpu_torch.kernels import render as render_kernels
+from autopanostitch_tpu_torch.ops.sampling import down2 as _down2  # noqa: F401
+from autopanostitch_tpu_torch.ops.sampling import up2 as _up2  # noqa: F401
 
 _EPS = 1e-8
 
@@ -23,51 +24,11 @@ def linear_blend(colors, weights):
     return acc / torch.clamp(wsum, min=_EPS)[..., None]
 
 
-def _down2(x):
-    """(..., H, W) -> (..., ceil(H/2), ceil(W/2)), antialiased linear resize."""
-    H, W = x.shape[-2:]
-    x = resize_axis(x, x.ndim - 2, (H + 1) // 2, "linear")
-    return resize_axis(x, x.ndim - 1, (W + 1) // 2, "linear")
-
-
-def _up2(x, h: int, w: int):
-    x = resize_axis(x, x.ndim - 2, h, "linear")
-    return resize_axis(x, x.ndim - 1, w, "linear")
-
-
-def multiband_blend(colors, weights, bands: int = 3, sigma: float = 1.0):
+def multiband_blend(colors, weights, bands: int = 3, sigma: float = 1.0, to_u8: bool = False):
     """Laplacian-pyramid blend across contributors.
 
-    colors (..., N, H, W, C) in [0, 1], weights (..., N, H, W) ->
-    (..., H, W, C), clamped to [0, 1] and zero where no weight."""
-    H, W, C = colors.shape[-3:]
-    max_levels = max(1, int(math.floor(math.log2(max(min(H, W), 2)))) - 1)
-    bands = max(1, min(bands, max_levels))
-    ax = weights.ndim - 3  # contributor axis of weights (..., N, H, W)
-
-    wsum = weights.sum(ax)
-    wsum_b = wsum.unsqueeze(ax)
-    wnorm = torch.where(wsum_b > _EPS, weights / torch.clamp(wsum_b, min=_EPS),
-                        torch.zeros_like(weights))
-
-    g_c = torch.movedim(colors, -1, -3)  # (..., N, C, H, W)
-    g_w = wnorm  # (..., N, H, W)
-    num_levels, shapes = [], []
-    for _ in range(bands - 1):
-        h, w = g_c.shape[-2:]
-        shapes.append((h, w))
-        g_c_down = _down2(gaussian_blur(g_c, sigma))
-        g_w_down = _down2(gaussian_blur(g_w, sigma))
-        lap = g_c - _up2(g_c_down, h, w)
-        den = torch.clamp(g_w.sum(ax), min=_EPS)  # (..., h, w)
-        num = (lap * g_w.unsqueeze(-3)).sum(ax)  # (..., C, h, w)
-        num_levels.append(num / den.unsqueeze(-3))
-        g_c, g_w = g_c_down, g_w_down
-
-    den = torch.clamp(g_w.sum(ax), min=_EPS)
-    out = (g_c * g_w.unsqueeze(-3)).sum(ax) / den.unsqueeze(-3)
-    for lvl in range(bands - 2, -1, -1):
-        out = _up2(out, *shapes[lvl]) + num_levels[lvl]
-    out = torch.movedim(out, -3, -1)
-    covered = wsum > _EPS
-    return torch.clamp(out, 0.0, 1.0) * covered[..., None]
+    colors (..., N, H, W, 3) in [0, 1], weights (..., N, H, W) ->
+    (..., H, W, 3), clamped to [0, 1] and zero where no weight; with to_u8
+    the renderer's finish instead: (uint8 (..., H, W, 3), covered (..., H,
+    W)), zero where the weights sum to at most 1e-3."""
+    return render_kernels.multiband(colors, weights, bands, sigma, to_u8)

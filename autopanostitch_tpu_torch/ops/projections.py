@@ -6,6 +6,13 @@ cylindrical, spherical, equirectangular (spherical with full-range bounds)
 and stereographic. Planar and stereographic work in the frame of a
 reference camera R_ref. World->camera rotation R, camera looking down +Z,
 x right, y down; pano pixel xp sits at surface coordinate x0 + xp / f_pan.
+
+`pano_to_ray`, `project_ray_to_camera` and `distort_pixels` are also the
+plain version of the render sampler (`kernels/render.py`), so they round
+as `csrc/render.cu` does: every 3-vector product is written out as a
+3-term sum (`@` may go to cuBLAS, which sums in another order) and f_pan
+divides as a tensor (a Python divisor becomes a reciprocal product on the
+card).
 """
 
 from __future__ import annotations
@@ -32,20 +39,25 @@ def pano_to_ray(mode: str, xp, yp, f_pan, x0, y0, R_ref=None):
     """Pano pixel grid -> unit world rays (..., 3). R_ref (3, 3) world->ref
     rotation, read by the planar and stereographic modes."""
     check_mode(mode)
-    u = x0 + xp / f_pan
-    v = y0 + yp / f_pan
+    f = torch.as_tensor(f_pan, dtype=torch.float32, device=xp.device)
+    u = xp / f + x0
+    v = yp / f + y0
     if mode == "cylindrical":
-        d = torch.stack([torch.sin(u), v, torch.cos(u)], dim=-1)
+        q = (torch.sin(u), v, torch.cos(u))
     elif mode in ("spherical", "equirectangular"):
         cphi = torch.cos(v)
-        d = torch.stack([cphi * torch.sin(u), torch.sin(v), cphi * torch.cos(u)], dim=-1)
-    elif mode in ("planar", "perspective"):
-        d = torch.stack([u, v, torch.ones_like(u)], dim=-1) @ R_ref  # R_ref^T @ d
-    else:  # stereographic: inverse projection from the plane tangent at +Z
-        r2 = u * u + v * v
-        denom = 1.0 + r2
-        d = torch.stack([2.0 * u / denom, 2.0 * v / denom, (1.0 - r2) / denom], dim=-1) @ R_ref
-    return normalize_rays(d)
+        q = (cphi * torch.sin(u), torch.sin(v), cphi * torch.cos(u))
+    else:  # R_ref^T @ d
+        r = torch.as_tensor(R_ref, dtype=torch.float32, device=xp.device)
+        if mode in ("planar", "perspective"):
+            q = tuple(u * r[0, j] + v * r[1, j] + r[2, j] for j in range(3))
+        else:  # stereographic: inverse projection from the plane tangent at +Z
+            r2 = u * u + v * v
+            den = r2 + 1.0
+            s = (2.0 * u / den, 2.0 * v / den, (1.0 - r2) / den)
+            q = tuple(s[0] * r[0, j] + s[1] * r[1, j] + s[2] * r[2, j] for j in range(3))
+    n = torch.clamp(torch.sqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2]), min=1e-8)
+    return torch.stack([q[0] / n, q[1] / n, q[2] / n], dim=-1)
 
 
 def ray_to_pano(mode: str, d, R_ref=None):
@@ -97,7 +109,8 @@ def distort_pixels(u, v, k1, cx, cy, iters: int = 6):
     rq2 = (dx * dx + dy * dy) / (cx * cx + cy * cy + 1e-12)
     rp2 = rq2
     for _ in range(iters):
-        rp2 = rq2 / torch.clamp(1.0 + k1 * rp2, min=0.25) ** 2
+        f = torch.clamp(1.0 + k1 * rp2, min=0.25)
+        rp2 = rq2 / (f * f)
     fac = torch.clamp(1.0 + k1 * rp2, min=0.25)
     fac = torch.where(rq2 > 2.25, torch.ones_like(fac), fac)
     return cx + dx / fac, cy + dy / fac
@@ -119,8 +132,9 @@ def project_ray_to_camera(d_world, R, K, eps_z: float = 1e-6, k1=None):
 
     d_world (..., P, 3) rays; R, K (..., 3, 3) cameras and k1 (...,), all
     broadcast against d_world's leading dims. Outputs are (..., P)."""
-    dirc = d_world @ R.transpose(-1, -2)
-    dx, dy, dz = dirc[..., 0], dirc[..., 1], dirc[..., 2]
+    d = d_world[..., 0], d_world[..., 1], d_world[..., 2]
+    dx, dy, dz = (d[0] * R[..., j, 0, None] + d[1] * R[..., j, 1, None] + d[2] * R[..., j, 2, None]
+                  for j in range(3))  # R @ d
     front = dz > eps_z
     dz_safe = torch.clamp(dz, min=eps_z)
     fx = K[..., 0, 0, None]

@@ -12,13 +12,23 @@ a = -0.5 (torch's bicubic is a = -0.75), and its downsampling antialiases
 (the kernel widens by the scale factor). `resize_weights` therefore builds
 the reference's per-axis weight matrix itself — same half-pixel sample
 positions, same border renormalisation, same out-of-range zeroing — and
-`resize` contracts one axis at a time with it.
+`resize` contracts one axis at a time with it (each matrix uploaded once per
+device and kept). `resize_taps` gives the same weights as (first index,
+taps) tables, the form the multiband kernels read. The separable Gaussian
+blur lives here too (SIFT's pyramid and the multiband pyramid share it).
+
+This module imports nothing of the package: `kernels/render.py` reads it
+for its plain versions and tap tables.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 _F32_EPS = float(np.finfo(np.float32).eps)
 
@@ -55,13 +65,36 @@ def resize_weights(in_size: int, out_size: int, method: str,
     return np.where(inside[None, :], w, 0).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=256)
+def _weights_on(in_size: int, out_size: int, method: str, device: torch.device) -> torch.Tensor:
+    """`resize_weights` on `device`, uploaded once per (in, out, method,
+    device)."""
+    return torch.as_tensor(resize_weights(in_size, out_size, method), device=device)
+
+
+def resize_taps(in_size: int, out_size: int, method: str, antialias: bool = True):
+    """`resize_weights` as compact tables for the kernels: (first (out,)
+    int32, taps (out, n) float32) with dense[first[j] + t, j] = taps[j, t]
+    and every other entry 0. n is the widest run of a column's nonzero
+    weights, and each window is shifted to lie inside [0, in_size)."""
+    w = resize_weights(in_size, out_size, method, antialias)
+    nz = w != 0
+    any_nz = nz.any(axis=0)
+    lo = np.where(any_nz, nz.argmax(axis=0), 0)
+    hi = np.where(any_nz, in_size - 1 - nz[::-1].argmax(axis=0), 0)
+    n = int(max((hi - lo + 1).max(initial=1), 1))
+    first = np.clip(lo, 0, in_size - n).astype(np.int32)
+    rows = first[:, None] + np.arange(n)[None, :]
+    taps = w[rows, np.arange(out_size)[:, None]].astype(np.float32)
+    return first, taps
+
+
 def resize_axis(x: torch.Tensor, axis: int, out_size: int, method: str) -> torch.Tensor:
     """Resize one axis of x like `jax.image.resize(..., method)`."""
     in_size = x.shape[axis]
     if in_size == out_size:
         return x
-    w = torch.as_tensor(resize_weights(in_size, out_size, method), device=x.device)
-    y = torch.movedim(x, axis, -1) @ w
+    y = torch.movedim(x, axis, -1) @ _weights_on(in_size, out_size, method, x.device)
     return torch.movedim(y, -1, axis)
 
 
@@ -72,11 +105,47 @@ def resize(x: torch.Tensor, shape, method: str) -> torch.Tensor:
     return x
 
 
+def gaussian_kernel1d(sigma: float, device=None):
+    radius = max(1, int(math.ceil(3.0 * sigma)))
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32, device=device)
+    k = torch.exp(-0.5 * (x / sigma) ** 2)
+    return k / k.sum()
+
+
+def gaussian_blur(img, sigma: float):
+    """Separable Gaussian blur of (..., H, W) with edge-replicate padding."""
+    if sigma <= 0:
+        return img
+    k = gaussian_kernel1d(sigma, img.device)
+    r = k.shape[0] // 2
+    H, W = img.shape[-2:]
+    x = img.reshape(-1, 1, H, W)
+    x = F.pad(x, (r, r, r, r), mode="replicate")
+    x = F.conv2d(x, k.reshape(1, 1, 1, -1))
+    x = F.conv2d(x, k.reshape(1, 1, -1, 1))
+    return x.reshape(img.shape)
+
+
+def down2(x: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) -> (..., ceil(H/2), ceil(W/2)), antialiased linear resize
+    (the multiband pyramid's step down)."""
+    H, W = x.shape[-2:]
+    x = resize_axis(x, x.ndim - 2, (H + 1) // 2, "linear")
+    return resize_axis(x, x.ndim - 1, (W + 1) // 2, "linear")
+
+
+def up2(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(..., h', w') -> (..., h, w) linear resize (the pyramid's step up)."""
+    x = resize_axis(x, x.ndim - 2, h, "linear")
+    return resize_axis(x, x.ndim - 1, w, "linear")
+
+
 def upsample2x_cubic(images: torch.Tensor) -> torch.Tensor:
     """(N, H, W, C) -> (N, 2H, 2W, C) Keys a = -0.5 upsample, the
-    `jax.image.resize(..., "cubic")` of the bicubic2x renderer."""
+    `jax.image.resize(..., "cubic")` of the bicubic2x renderer; contiguous,
+    as the samplers gather whole pixels from it."""
     N, H, W, C = images.shape
-    return resize(images, (N, 2 * H, 2 * W, C), "cubic")
+    return resize(images, (N, 2 * H, 2 * W, C), "cubic").contiguous()
 
 
 def _tap(flat, base, xi, yi, H: int, W: int):

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from autopanostitch_tpu_torch.config import DetectorConfig
 from autopanostitch_tpu_torch.kernels.sift_window import descriptor, orient_hist, smooth_hist
+from autopanostitch_tpu_torch.ops.sampling import gaussian_blur
 
 _INIT_SIGMA = 0.5
 _ORI_BINS = 36
@@ -54,27 +55,6 @@ def top_k_stable(x, k: int):
 # ---------------------------------------------------------------------------
 # Gaussian pyramid
 # ---------------------------------------------------------------------------
-
-def gaussian_kernel1d(sigma: float, device=None):
-    radius = max(1, int(math.ceil(3.0 * sigma)))
-    x = torch.arange(-radius, radius + 1, dtype=torch.float32, device=device)
-    k = torch.exp(-0.5 * (x / sigma) ** 2)
-    return k / k.sum()
-
-
-def gaussian_blur(img, sigma: float):
-    """Separable Gaussian blur of (..., H, W) with edge-replicate padding."""
-    if sigma <= 0:
-        return img
-    k = gaussian_kernel1d(sigma, img.device)
-    r = k.shape[0] // 2
-    H, W = img.shape[-2:]
-    x = img.reshape(-1, 1, H, W)
-    x = F.pad(x, (r, r, r, r), mode="replicate")
-    x = F.conv2d(x, k.reshape(1, 1, 1, -1))
-    x = F.conv2d(x, k.reshape(1, 1, -1, 1))
-    return x.reshape(img.shape)
-
 
 def build_pyramid(img, cfg: DetectorConfig):
     """Gaussian + DoG pyramid of (G, H, W) images: a list over octaves of

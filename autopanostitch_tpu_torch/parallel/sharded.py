@@ -117,16 +117,16 @@ def multichip_pipeline_step(mesh: Mesh, cfg: DetectorConfig):
 
 def _gather_tiles(tiles, covs, T: int, mesh: Mesh):
     """Every rank's rendered tiles (rank d holds tiles d::size) back in
-    tile order, numpy."""
+    tile order, tensors on the mesh's device."""
     per = -(-T // mesh.size)
     n_all = per * mesh.size
-    t_all = gather_rows(_on(tiles, mesh), mesh, n_all).cpu().numpy()
-    c_all = gather_rows(_on(covs, mesh), mesh, n_all).cpu().numpy()
+    t_all = gather_rows(_on(tiles, mesh), mesh, n_all)
+    c_all = gather_rows(_on(covs, mesh), mesh, n_all)
     pos = np.arange(n_all)
     t_idx = pos // per + (pos % per) * mesh.size  # slot j of rank d holds tile d + j size
-    ok = t_idx < T
-    order = np.argsort(t_idx[ok])
-    return t_all[ok][order], c_all[ok][order]
+    ok = np.nonzero(t_idx < T)[0]
+    idx = torch.as_tensor(ok[np.argsort(t_idx[ok])], device=mesh.device)
+    return t_all[idx], c_all[idx]
 
 
 def sharded_render_bands(images, feathers, R, K, gains, canvas: dict, mesh: Mesh,
@@ -179,7 +179,8 @@ def sharded_render_tiles(images, feathers, R, K, canvas: dict, mesh: Mesh, gains
         imgs, _on(feathers, mesh, torch.float32), R, K, gains, k1, sel[mine], sel_ok[mine],
         origins[mine], canvas, tuple(tile), blend_mode, bands, angle_power, interp)
     tiles, covs = _gather_tiles(tiles, covs, T, mesh)
-    return render_stage.assemble_tiles(tiles, covs, origins, canvas["Hc"], canvas["Wc"])
+    pano, cover = render_stage.assemble_tiles(tiles, covs, origins, canvas["Hc"], canvas["Wc"])
+    return pano.cpu().numpy(), cover.cpu().numpy()
 
 
 def sharded_gain_stats_imagespace(images, feathers, sizes, R, K, mesh: Mesh, stride: int = 5,

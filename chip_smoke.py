@@ -114,11 +114,28 @@ Phases, each printing its own lines:
      members, pairs and accepted pairs, f within 5e-4, panoramas within 1
      LSB on average); a failing rank fails the phase. The rehearsal runs
      11a and 11c over gloo on the CPU and 11b as two CPU ranks.
+  12. the render kernels (`csrc/render.cu`) against their plain versions
+     on the ring's recorded render inputs (phase 5's images, cameras, gains
+     and k1; run last, so that no stitch's timing follows its large plain
+     runs): `render_sample` in all five projections x {nearest, bicubic2x}
+     x {multiband, linear, none-maxangle} x {with k1, without} (up to 96
+     tiles of each canvas, nearest its centre; 3 in the rehearsal), the
+     multiband pyramid (`mb_reduce`, `mb_collapse`) on the sampler's output
+     and on an odd-sized 301 x 1003 band: float outputs (the sampler's
+     colours and weights, the pyramid's levels, the collapse's float blend)
+     within 1e-5, uint8 at most 1 apart on at most 0.1 % of the covered
+     pixels, coverage equal, a repeat launch bit-identical; then each kernel
+     timed beside its plain version (and the reduce beside a depthwise
+     `F.conv2d` blur with the resize products) and its bound at the ring's
+     and the folder's whole canvases.
 Phases 5-11 each count the kernels' launches from 0 and fail if a kernel of
 the path never launched (in 11b on either rank) or if `ba_normals`, off the
-main path, did; every rotational stitch must launch `ba_system` (its count
-includes the launches that the LM phase graphs replay), and each prints its bundle_adjustment seconds and the
-graphs it captured and replayed. Then a JSON line of the kernels, the nvidia-smi
+main path, did, or if a plain version of a render kernel ran on the card;
+every rotational stitch must launch the render kernels (`render_sample`,
+`mb_reduce`, `mb_collapse`) and prints its render stage seconds and their
+launches; every rotational stitch must launch `ba_system` (its count
+includes the launches that the LM phase graphs replay), and each prints
+its bundle_adjustment seconds and the graphs it captured and replayed. Then a JSON line of the kernels, the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero without that line. This script imports nothing of JAX.
 
@@ -997,7 +1014,7 @@ def phase_slice(dev, n: int, f_true: float, w: int, h: int, env_hw):
     t0 = time.perf_counter()
     iset, env, Rs = ring_scene(n, f_true, w, h, env_hw)
     log(f"slice: scene {n} views {w}x{h} f={f_true} built in {time.perf_counter() - t0:.1f} s")
-    with record_ba({}) as ba_call:
+    with record_ba({}) as ba_call, record_render([]) as renders:
         res, counts = run_stitch("slice", iset, StitchConfig(), dev)
     if len(res.panoramas) != 1 or len(res.panoramas[0]["members"]) != n:
         raise AssertionError(f"expected one {n}-view panorama, got components {res.components}")
@@ -1015,7 +1032,7 @@ def phase_slice(dev, n: int, f_true: float, w: int, h: int, env_hw):
     require_launches("slice", counts, ("knn", "orient_hist", "descriptor", "ba_system"), dev)
     split = features_split(iset.images, iset.sizes, dev)
     log("slice: features stage split s " + json.dumps(split))
-    return counts, res.features, ba_call
+    return counts, res.features, ba_call, renders[0]
 
 
 def ring_gates(label: str, res, env, Rs, n: int, f_true: float, psnr_min: float, jax=None):
@@ -1299,6 +1316,9 @@ def run_stitch(label: str, iset, cfg, dev, mesh=None):
     log(f"{label}: stage wall s " + json.dumps({k: round(v, 4) for k, v in timer.report().items()})
         + f" total {wall:.3f}")
     log(f"{label}: kernel launches in the stitch {json.dumps(counts)}")
+    log(f"{label}: render {timer.report().get('render', 0.0):.4f} s, launches "
+        + ", ".join(f"{k} {counts[k]}" for k in RENDER_KERNELS)
+        + f", plain render versions on the card {counts['render_plain_on_cuda']}")
     log(f"{label}: bundle_adjustment {timer.report().get('bundle_adjustment', 0.0):.4f} s, "
         f"ba_system launches {counts['ba_system']}, LM phase graphs captured "
         f"{counts['ba_graph_captures']}, replayed {counts['ba_graph_replays']}")
@@ -1323,6 +1343,49 @@ def record_ba(store: dict):
         yield store
     finally:
         bundle.run_incremental_ba = saved
+
+
+@contextlib.contextmanager
+def record_render(store: list):
+    """Append (args, kwargs) of every `models.render.render_rotational` call
+    made inside to `store`."""
+    from autopanostitch_tpu_torch.models import render
+
+    saved = render.render_rotational
+
+    def run(*args, **kw):
+        store.append((args, kw))
+        return saved(*args, **kw)
+
+    render.render_rotational = run
+    try:
+        yield store
+    finally:
+        render.render_rotational = saved
+
+
+@contextlib.contextmanager
+def record_bands(store: list):
+    """Append the arguments (by name, defaults applied) of every
+    `models.planar.composite_band` call made inside to `store`."""
+    import inspect
+
+    from autopanostitch_tpu_torch.models import planar
+
+    saved = planar.composite_band
+    sig = inspect.signature(saved)
+
+    def run(*args, **kw):
+        bound = sig.bind(*args, **kw)
+        bound.apply_defaults()
+        store.append(dict(bound.arguments))
+        return saved(*args, **kw)
+
+    planar.composite_band = run
+    try:
+        yield store
+    finally:
+        planar.composite_band = saved
 
 
 def ba_phase_inputs(rec: dict, dev):
@@ -1494,13 +1557,21 @@ def phase_ba(dev, recs: dict) -> dict:
     return out
 
 
-def require_launches(label: str, counts: dict, names, dev) -> None:
-    """Fail unless every kernel of `names` launched in a run, or if
-    `ba_normals`, off the main path since `ba_system`, did."""
-    if dev.type == "cuda" and not all(counts[k] > 0 for k in names):
+RENDER_KERNELS = ("render_sample", "mb_reduce", "mb_collapse")
+
+
+def require_launches(label: str, counts: dict, names, dev, render=RENDER_KERNELS) -> None:
+    """Fail unless every kernel of `names` and `render` (the rotational
+    multiband render's kernels; none for the planar stitches' linear blend)
+    launched in a run, or if `ba_normals`, off the main path since
+    `ba_system`, did, or if a plain version of a render kernel ran on the
+    card."""
+    if dev.type == "cuda" and not all(counts[k] > 0 for k in tuple(names) + tuple(render)):
         raise AssertionError(f"{label}: a kernel of the path never launched: {counts}")
     if counts["ba_normals"]:
         raise AssertionError(f"{label}: ba_normals launched on the main path: {counts}")
+    if dev.type == "cuda" and counts["render_plain_on_cuda"]:
+        raise AssertionError(f"{label}: a plain render function ran on the card: {counts}")
 
 
 def phase_multipano(dev, n: int, f_true: float, w: int, h: int, env_hw, limit: int,
@@ -1518,7 +1589,8 @@ def phase_multipano(dev, n: int, f_true: float, w: int, h: int, env_hw, limit: i
     modes = ("spherical", "cylindrical")
     cfg = config_with(config, {"render": {"projections": modes},
                                "tpu": {"compute_dtype": compute_dtype}})
-    res, counts = run_stitch(label, iset, cfg, dev, mesh)
+    with record_render([]) as renders:
+        res, counts = run_stitch(label, iset, cfg, dev, mesh)
     got = sorted(sorted(np.asarray(p["members"]).tolist()) for p in res.panoramas)
     log(f"{label}: components {np.asarray(res.components).tolist()}, panoramas {got}, "
         f"accepted pairs {int(np.asarray(res.graph.accepted).sum())}/{len(res.graph.pairs)}")
@@ -1542,16 +1614,19 @@ def phase_multipano(dev, n: int, f_true: float, w: int, h: int, env_hw, limit: i
     if compute_dtype == "bfloat16":
         need += ("knn_bf16", "knn_pairs_bf16")
     require_launches(label, counts, need, dev)
-    return counts
+    return counts, renders
 
 
 def phase_planar(dev, w: int, h: int, psnr_min: float):
+    """Phase 7: the 3x3 planar scan, linear blend. Returns the stitch's
+    launch counts and the arguments of its middle `composite_band` call."""
     from autopanostitch_tpu_torch.api import BlendConfig, StitchConfig, StraightenConfig
 
     iset, env, offs = planar_scene(w, h, 0.35)
     cfg = StitchConfig(straighten=StraightenConfig(force_planar_scan=True),
                        blend=BlendConfig(mode="linear"))
-    res, counts = run_stitch("planar", iset, cfg, dev)
+    with record_bands([]) as bands:
+        res, counts = run_stitch("planar", iset, cfg, dev)
     if len(res.panoramas) != 1 or len(res.panoramas[0]["members"]) != 9:
         raise AssertionError(f"expected one planar panorama of 9, got components {res.components}")
     pr = res.panoramas[0]
@@ -1564,8 +1639,8 @@ def phase_planar(dev, w: int, h: int, psnr_min: float):
         raise AssertionError(f"corner error {err:.3f} px >= 1 px")
     if not psnr >= psnr_min:
         raise AssertionError(f"PSNR {psnr:.2f} dB < {psnr_min} dB")
-    require_launches("planar", counts, ("knn", "orient_hist", "descriptor"), dev)
-    return counts
+    require_launches("planar", counts, ("knn", "orient_hist", "descriptor"), dev, render=())
+    return counts, bands[len(bands) // 2]
 
 
 def phase_planar_models(dev, w: int, h: int, psnr_min: float):
@@ -1593,7 +1668,8 @@ def phase_planar_models(dev, w: int, h: int, psnr_min: float):
             f"{err:.4f} px, PSNR {psnr:.3f} dB (gate {psnr_min:.2f})")
         if not (err < 1.0 and psnr >= psnr_min):
             raise AssertionError(f"planar {model}: corner error {err:.3f} px or PSNR {psnr:.2f} dB")
-        require_launches(f"planar_{model}", counts, ("knn", "orient_hist", "descriptor"), dev)
+        require_launches(f"planar_{model}", counts, ("knn", "orient_hist", "descriptor"), dev,
+                         render=())
         out.append(counts)
     return out
 
@@ -1714,7 +1790,7 @@ def phase_multichip(dev, pano100, gate, single: dict, multi):
                 f"{counts_a['ba_graph_replays']}")
             if dev.type == "cuda" and counts_a["ba_graph_captures"] == 0:
                 raise AssertionError(f"multichip_{backend}1: no LM phase graph was captured")
-            counts_c = phase_multipano(dev, *multi, mesh=mesh)
+            counts_c, _ = phase_multipano(dev, *multi, mesh=mesh)
         finally:
             dist.destroy_process_group()
         t0 = time.perf_counter()
@@ -1735,6 +1811,275 @@ def phase_multichip(dev, pano100, gate, single: dict, multi):
     return out
 
 
+# float32 operations (a product and a sum count 1 each, a square root, a
+# division or a sine 1) as `csrc/render.cu` writes them: the sampler's ray a
+# pixel (RENDER_RAY_OPS) and each slot's camera, k1 fixed point (6 steps),
+# bilinear taps on the 2x stack, weight and gain (RENDER_SLOT_OPS, the main
+# path's bicubic2x with k1); the pyramid's blur (7 taps, twice) a source
+# value and its 2x-down taps (4 a value, once along each axis); the
+# collapse's weight and its three channels' up2 (4 taps), Laplacian and
+# weighted sum a slot (MB_COLLAPSE_SLOT_OPS), and the coarser result's up2,
+# the division and the finish a pixel (MB_COLLAPSE_PIXEL_OPS)
+RENDER_RAY_OPS = 25
+RENDER_SLOT_OPS = 140
+MB_BLUR_OPS = 28
+MB_DOWN_OPS = 8
+MB_COLLAPSE_SLOT_OPS = 52
+MB_COLLAPSE_PIXEL_OPS = 42
+RENDER_MODES = ("planar", "cylindrical", "spherical", "equirectangular", "stereographic")
+ODD_BAND = (301, 1003)  # th, tw of the odd-sized multiband band
+
+
+def render_inputs(call, dev, mode: str, interp: str, with_k1: bool, max_tiles: int | None,
+                  tile=None):
+    """`kernels.render.render_sample`'s arguments for a recorded
+    `render_rotational` call (its images, cameras, gains and k1) in `mode`
+    (the call's own canvas in its mode, else `compute_canvas` with the
+    default RenderConfig), its tiles (or `tile`) and contributors, up to
+    `max_tiles` of them nearest the canvas's centre (None: all)."""
+    import torch
+
+    from autopanostitch_tpu_torch.config import RenderConfig
+    from autopanostitch_tpu_torch.models import render as rstage
+    from autopanostitch_tpu_torch.ops import sampling as samp
+
+    args, kw = call
+    images, feathers, R, K = args[:4]
+    k1 = kw["k1"] if with_k1 else None
+    tile = tuple(tile or kw["tile"])
+    canvas = kw["canvas"]
+    # a planar or stereographic canvas holds the cameras within 40 degrees
+    # of the first one's axis (a 360-degree ring has no such canvas)
+    part = np.arange(len(R))
+    if mode in ("planar", "perspective", "stereographic"):
+        part = np.nonzero(np.asarray(R)[:, 2] @ np.asarray(R)[0, 2] > np.cos(np.radians(40)))[0]
+    Rp, Kp, sizes = np.asarray(R)[part], np.asarray(K)[part], np.asarray(kw["sizes"])[part]
+    k1p = None if kw["k1"] is None else np.asarray(kw["k1"])[part]
+    if canvas["mode"] != mode:
+        canvas = rstage.compute_canvas(Rp, Kp, sizes, mode, RenderConfig(), k1=k1p, device=dev)
+    C_arg = kw.get("max_contributors")
+    sel, ok, org = rstage.tile_contributors(canvas, Rp, Kp, sizes, tile,
+                                            None if C_arg is None else min(C_arg, len(part)),
+                                            k1=k1p, device=dev)
+    sel = part[sel].astype(np.int32)
+    if max_tiles is not None and len(sel) > max_tiles:
+        centre = np.array([canvas["Wc"] - tile[1], canvas["Hc"] - tile[0]]) / 2
+        pick = np.sort(np.argsort(np.abs(org - centre).sum(1), kind="stable")[:max_tiles])
+        sel, ok, org = sel[pick], ok[pick], org[pick]
+    t = lambda a, dtype=torch.float32: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    images4 = torch.cat([images, feathers[..., None]], -1)
+    fine4 = samp.upsample2x_cubic(images4) if interp == "bicubic2x" else None
+    gains = kw["gains"] if kw.get("gains") is not None else np.ones((len(R), 3), np.float32)
+    return (images4, fine4, t(R), t(K), t(gains), None if k1 is None else t(k1),
+            t(sel, torch.int32), t(ok, torch.bool), t(org), canvas, tile[0], tile[1])
+
+
+def u8_agreement(u8_k, cov_k, u8_p, cov_p) -> dict:
+    """Largest uint8 difference, the share of covered pixels that differ,
+    and whether the coverage is equal."""
+    diff = (u8_k.int() - u8_p.int()).abs()
+    covered = max(int(cov_p.sum()), 1)
+    return {"u8_max": int(diff.max()) if diff.numel() else 0,
+            "u8_share": int((diff.amax(-1) > 0).sum()) / covered,
+            "coverage_equal": bool(torch_equal(cov_k, cov_p))}
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def render_gate(label: str, rec: dict) -> None:
+    """The render kernels' gates: float outputs within 1e-5, uint8 at most 1
+    apart on at most 0.1 % of the covered pixels, coverage equal."""
+    if not rec.get("float_err", 0.0) <= 1e-5:
+        raise AssertionError(f"render {label}: float outputs {rec['float_err']:.3g} apart")
+    if "u8_max" in rec and not (rec["u8_max"] <= 1 and rec["u8_share"] <= 1e-3
+                                and rec["coverage_equal"]):
+        raise AssertionError(f"render {label}: uint8 or coverage gate failed {rec}")
+
+
+def render_checks(dev, call, max_tiles: int) -> dict:
+    """Each render kernel against its plain version on the ring's recorded
+    render inputs: five projections x {nearest, bicubic2x} x {multiband,
+    linear, none-maxangle} x {with k1, without}, and the multiband pyramid
+    on an odd-sized band; up to `max_tiles` tiles of each canvas, nearest
+    its centre. Returns the largest differences: the sampler's
+    colours and weights (sample_err), the pyramid's levels (reduce_err), the
+    collapse's float blend from the same levels (collapse_err), and the
+    share of covered pixels whose uint8 value differs (u8_share)."""
+    import torch
+
+    from autopanostitch_tpu_torch.kernels import render as kr
+
+    errs = {"sample_err": 0.0, "u8_share": 0.0, "u8_max": 0}
+    for mode in RENDER_MODES:
+        for with_k1 in (True, False):
+            for interp in ("nearest", "bicubic2x"):
+                inp = render_inputs(call, dev, mode, interp, with_k1, max_tiles)
+                for blend in ("multiband", "linear", "none-maxangle"):
+                    args = inp + (blend, 1.0, interp)
+                    got = kr.render_sample(*args)
+                    ref = kr.render_sample_plain(*args)
+                    if blend == "multiband":
+                        rec = {"float_err": max(float((a - b).abs().max()) for a, b in
+                                                zip(got, ref))}
+                        errs["sample_err"] = max(errs["sample_err"], rec["float_err"])
+                        rec.update(u8_agreement(*kr.multiband(*got, to_u8=True),
+                                                *kr.multiband_plain(*got, to_u8=True)))
+                    else:
+                        rec = u8_agreement(*got, *ref)
+                    label = f"{mode} {interp} {blend} k1={with_k1} ({len(inp[6])} tiles)"
+                    log(f"render: {label}: {json.dumps(rec)}")
+                    render_gate(label, rec)
+                    errs["u8_share"] = max(errs["u8_share"], rec["u8_share"])
+                    errs["u8_max"] = max(errs["u8_max"], rec["u8_max"])
+    inp = render_inputs(call, dev, "spherical", "bicubic2x", True, max_tiles=1, tile=ODD_BAND)
+    cols, ws = kr.render_sample(*inp, "multiband", 1.0, "bicubic2x")
+    plan = kr.pyramid_plan(*ODD_BAND, 3, 1.0, dev)
+    levels = kr.mb_reduce(cols, ws, plan)
+    plain_levels = kr.mb_reduce_plain(cols, ws, plan)
+    errs["reduce_err"] = max(float((a - b).abs().max()) for a, b in zip(levels, plain_levels))
+    errs["collapse_err"] = float((kr.mb_collapse(cols, ws, levels, plan)
+                                  - kr.mb_collapse_plain(cols, ws, levels, plan)).abs().max())
+    rec = {"float_err": max(errs["reduce_err"], errs["collapse_err"]),
+           "reduce_err": errs["reduce_err"], "collapse_err": errs["collapse_err"]}
+    rec.update(u8_agreement(*kr.multiband(cols, ws, to_u8=True),
+                            *kr.multiband_plain(cols, ws, to_u8=True)))
+    log(f"render: odd band {ODD_BAND} of {cols.shape[1]} slots, levels {plan.sizes}: "
+        f"{json.dumps(rec)}")
+    render_gate("odd band", rec)
+    errs["u8_share"] = max(errs["u8_share"], rec["u8_share"])
+    first = kr.multiband(cols, ws, to_u8=True)
+    if not all(torch_equal(a, b) for a, b in zip(first, kr.multiband(cols, ws, to_u8=True))):
+        raise AssertionError("render: a repeat multiband launch differs")
+    return errs
+
+
+def planar_band_check(dev, band: dict) -> dict:
+    """The multiband kernels at the planar path's rank and shape: a band of
+    phase 7's canvas ((N, 512, Wc), every image of the scan a contributor,
+    no leading dims), warped as `composite_band` warps it. Each kernel
+    against its plain version, and `composite_band`'s own multiband (through
+    `ops/blend`, which must launch the kernels and no plain version) against
+    the plain multiband of the same band, at the render gates."""
+    from autopanostitch_tpu_torch.kernels import render as kr
+    from autopanostitch_tpu_torch.models import planar
+
+    band = dict(band, blend_mode="multiband")
+    cols, ws = planar.warp_band(*(band[k] for k in (
+        "images", "feathers", "H_inv_canvas", "valid", "gains", "band_h", "out_w", "x0", "y0",
+        "interp")))
+    plan = kr.pyramid_plan(cols.shape[-3], cols.shape[-2], band["bands"], 1.0, dev)
+    levels = kr.mb_reduce(cols, ws, plan)
+    rec = {"reduce_err": max(float((a - b).abs().max())
+                             for a, b in zip(levels, kr.mb_reduce_plain(cols, ws, plan))),
+           "collapse_err": float((kr.mb_collapse(cols, ws, levels, plan)
+                                  - kr.mb_collapse_plain(cols, ws, levels, plan)).abs().max())}
+    rec["float_err"] = max(rec["reduce_err"], rec["collapse_err"])
+    before = (kr.reduce_launches, kr.collapse_launches, kr.plain_on_cuda)
+    got = planar.composite_band(**band)
+    launched = (kr.reduce_launches - before[0], kr.collapse_launches - before[1],
+                kr.plain_on_cuda - before[2])
+    if dev.type == "cuda" and launched != (plan.bands - 1, plan.bands, 0):
+        raise AssertionError(f"render planar band: composite_band launched (mb_reduce, "
+                             f"mb_collapse, plain versions) {launched}")
+    rec.update(u8_agreement(*got, *kr.multiband_plain(cols, ws, band["bands"], to_u8=True)))
+    log(f"render: planar band {tuple(cols.shape)}, levels {plan.sizes}, covered "
+        f"{float(got[1].float().mean()):.3f}: {json.dumps(rec)}")
+    render_gate("planar band", rec)
+    return rec
+
+
+def render_times(dev, label: str, call) -> dict:
+    """Device times (`time_ms`) of the render kernels, their plain versions
+    and, for the pyramid's reduce, the library's depthwise convolution and
+    resize products, with their bounds, at a recorded call's whole canvas
+    (the main path: its projection, bicubic2x, k1, multiband)."""
+    import torch
+
+    from autopanostitch_tpu_torch.kernels import render as kr
+    from autopanostitch_tpu_torch.ops import sampling as samp
+
+    args, kw = call
+    interp, bands = kw["interp"], kw["bands"]
+    inp = render_inputs(call, dev, kw["canvas"]["mode"], interp, kw["k1"] is not None,
+                        max_tiles=None)
+    sargs = inp + ("multiband", kw["angle_power"], interp)
+    images4, fine4, sel = inp[0], inp[1], inp[6]
+    T, C = sel.shape
+    th, tw = inp[10], inp[11]
+    P = T * th * tw
+    out = {"shape": {"tiles": T, "slots": C, "tile": [th, tw], "images": list(images4.shape)}}
+    stack = fine4 if fine4 is not None else images4
+    small = sum(x.numel() * x.element_size() for x in inp[2:9] if x is not None)
+    t_k = time_ms(lambda: kr.render_sample(*sargs), dev)
+    t_p = time_ms(lambda: kr.render_sample_plain(*sargs), dev)
+    b, by = bound_ms(P * RENDER_RAY_OPS + P * C * RENDER_SLOT_OPS,
+                     stack.numel() * 4 + small + P * C * 16, FP32_FLOPS)
+    out["render_sample"] = dict(ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=b, bound_by=by)
+    cols, ws = kr.render_sample(*sargs)
+    plan = kr.pyramid_plan(th, tw, bands, 1.0, dev)
+    levels = kr.mb_reduce(cols, ws, plan)
+    g0 = kr._level0_plain(cols, ws)
+
+    def library_reduce():
+        g = g0
+        for _ in range(plan.bands - 1):
+            g = samp.down2(samp.gaussian_blur(g, plan.sigma))
+
+    lvl_px = [h * w for h, w in plan.sizes]
+    planes = T * C * 4
+    red_ops = sum(planes * (lvl_px[i] * MB_BLUR_OPS + plan.sizes[i + 1][0] * plan.sizes[i][1]
+                            * MB_DOWN_OPS + lvl_px[i + 1] * MB_DOWN_OPS)
+                  for i in range(plan.bands - 1))
+    lvl_bytes = sum(planes * n * 4 for n in lvl_px[1:])
+    b, by = bound_ms(red_ops, P * C * 16 + lvl_bytes, FP32_FLOPS)
+    out["mb_reduce"] = dict(ms=time_ms(lambda: kr.mb_reduce(cols, ws, plan), dev),
+                            plain_ms=time_ms(lambda: kr.mb_reduce_plain(cols, ws, plan), dev),
+                            library_ms=time_ms(library_reduce, dev), bound_ms=b, bound_by=by)
+    col_ops = sum(T * n * (C * MB_COLLAPSE_SLOT_OPS + MB_COLLAPSE_PIXEL_OPS) for n in lvl_px)
+    b, by = bound_ms(col_ops, P * C * 16 + lvl_bytes + P * 4, FP32_FLOPS)
+    out["mb_collapse"] = dict(
+        ms=time_ms(lambda: kr.mb_collapse(cols, ws, levels, plan, True), dev),
+        plain_ms=time_ms(lambda: kr.mb_collapse_plain(cols, ws, levels, plan, True), dev),
+        library_ms=None, bound_ms=b, bound_by=by)
+    out["multiband_ms"] = time_ms(lambda: kr.multiband(cols, ws, bands, to_u8=True), dev)
+    out["multiband_plain_ms"] = time_ms(
+        lambda: kr.multiband_plain(cols, ws, bands, to_u8=True), dev)
+    calls = {"render_sample": lambda: kr.render_sample(*sargs),
+             "mb_reduce": lambda: kr.mb_reduce(cols, ws, plan),
+             "mb_collapse": lambda: kr.mb_collapse(cols, ws, levels, plan, True)}
+    for name in RENDER_KERNELS:  # a cross-check of time_ms: back-to-back launches in a graph
+        out[name]["graph_ms"] = graph_ms(calls[name], dev)
+    for name in RENDER_KERNELS:
+        r = out[name]
+        log(f"render {label} {name}: {r['ms']:.4f} ms (from a graph {r['graph_ms']:.4f} ms), "
+            f"plain {r['plain_ms']:.4f} ms"
+            + (f", library {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "")
+            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{100 * r['bound_ms'] / r['ms']:.1f} % of it")
+    log(f"render {label}: {json.dumps(out['shape'])}; the whole multiband "
+        f"{out['multiband_ms']:.4f} ms, plain {out['multiband_plain_ms']:.4f} ms")
+    return out
+
+
+def phase_render(dev, ring_call, folder_call, planar_band, max_tiles: int) -> dict:
+    """Phase 12: the render kernels (`csrc/render.cu`) against their plain
+    versions on the ring's recorded render inputs (`render_checks`) and on a
+    band of the planar canvas (`planar_band_check`), then timed at the
+    ring's and the folder's whole canvases (`render_times`)."""
+    errs = render_checks(dev, ring_call, max_tiles)
+    band = planar_band_check(dev, planar_band)
+    for k in ("reduce_err", "collapse_err", "u8_share", "u8_max"):
+        errs[k] = max(errs[k], band[k])
+    out = {"errors": errs}
+    out["ring"] = render_times(dev, "ring", ring_call)
+    out["folder"] = render_times(dev, "folder", folder_call)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1749,7 +2094,7 @@ def main() -> int:
                      multi=(10, 240.0, 320, 240, (512, 1024), 200, 35.0), planar=(320, 240, 40.0),
                      detectors=(8, 240.0, 320, 240, (512, 1024), 0.2, None),
                      ring_gates=None, pano100=(16, 175.0, 192, 144, (384, 1024), None),
-                     cli=(8, 240.0, 320, 240, (512, 1024)))
+                     cli=(8, 240.0, 320, 240, (512, 1024)), render_tiles=3)
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA GPU",
@@ -1765,7 +2110,8 @@ def main() -> int:
                      multi=(12, 600.0, 800, 600, (1024, 2048), 400, JAX_MULTIPANO_PSNR - 3.0),
                      planar=(800, 600, JAX_PLANAR_PSNR - 3.0),
                      detectors=PHASE8_RING + (JAX_PHASE8,), ring_gates=JAX_RING_OPTIONS,
-                     pano100=PANO100_RING + (JAX_PANO100,), cli=(12, 600.0, 800, 600, (1024, 2048)))
+                     pano100=PANO100_RING + (JAX_PANO100,), cli=(12, 600.0, 800, 600, (1024, 2048)),
+                     render_tiles=96)
 
     import autopanostitch_tpu_torch  # noqa: F401  (fails outside the repo)
     from autopanostitch_tpu_torch.kernels import _build
@@ -1805,13 +2151,14 @@ def main() -> int:
     phase_b1_shapes(dev, sizes["shapes_F"], sizes["n_img"])
     b2 = phase_b2(dev, *sizes["b2"])
     b2f = phase_b2_fused(dev, sizes["b2f"])
-    ring_counts, ring_feats, ring_ba = phase_slice(dev, *sizes["ring"])
+    ring_counts, ring_feats, ring_ba, ring_render = phase_slice(dev, *sizes["ring"])
     runs = [ring_counts]
     runs += phase_ring_options(dev, *sizes["ring"], ring_feats, sizes["ring_gates"]).values()
     del ring_feats
-    runs += [phase_multipano(dev, *sizes["multi"]),
-             phase_multipano(dev, *sizes["multi"], compute_dtype="bfloat16"),
-             phase_planar(dev, *sizes["planar"])]
+    multi_counts, folder_renders = phase_multipano(dev, *sizes["multi"])
+    runs += [multi_counts, phase_multipano(dev, *sizes["multi"], compute_dtype="bfloat16")[0]]
+    planar_counts, planar_band = phase_planar(dev, *sizes["planar"])
+    runs.append(planar_counts)
     runs += phase_planar_models(dev, *sizes["planar"])
     det = phase_detectors(dev, *sizes["detectors"])
     runs += list(det.values())
@@ -1821,6 +2168,8 @@ def main() -> int:
     multichip = phase_multichip(dev, sizes["pano100"][:5], sizes["pano100"][5], pano100_rec,
                                 sizes["multi"])
     runs += multichip
+    render = phase_render(dev, ring_render, folder_renders[0], planar_band, sizes["render_tiles"])
+    del ring_render, folder_renders, planar_band
     counts = {k: sum(c[k] for c in runs) for k in runs[0]}
     mc_counts = {k: sum(c[k] for c in multichip) for k in runs[0]}
     log(f"multichip: kernel launches of phase 11 (11a, 11c and both ranks of 11b) "
@@ -1946,6 +2295,40 @@ def main() -> int:
                        "out) at 3.35 TB/s",
          "launches_note": "off the main path since ba_system: the launches are phase 9b's "
                           "checks only, which no count includes"}
+    ] + [
+        {"name": name, "route": "cuda", "source": "autopanostitch_tpu_torch/csrc/render.cu",
+         "replaces": ("autopanostitch_tpu/models/render.py:292" if name == "render_sample"
+                      else "autopanostitch_tpu/ops/blend.py:80"),
+         "replaces_note": ("_render_tile_impl's sampling and its linear / none-* scans"
+                           if name == "render_sample" else
+                           "multiband_blend's " + ("blur (_blur_nc :39) and 2x down (_down2 :69)"
+                                                   if name == "mb_reduce" else
+                                                   "Laplacian blend and collapse (_up2 :75)"))
+                          + ", XLA fusions in the JAX package: a hand kernel with no Pallas "
+                            "counterpart",
+         "launches": counts[name], "multichip_launches": mc_counts[name],
+         "max_abs_err": render["errors"][{"render_sample": "sample_err",
+                                          "mb_reduce": "reduce_err",
+                                          "mb_collapse": "collapse_err"}[name]],
+         "max_err_is": {"render_sample": "colours and weights (multiband), phase 12's 60 cases",
+                        "mb_reduce": "the Gaussian levels of phase 12's odd band and planar band",
+                        "mb_collapse": "those bands' float blends from the same levels"}[name],
+         "u8_share": render["errors"]["u8_share"],
+         **{k: render["ring"][name][k] for k in keys + ("graph_ms",)},
+         "shape": render["ring"]["shape"],
+         "folder": dict({k: render["folder"][name][k] for k in keys + ("graph_ms",)},
+                        shape=render["folder"]["shape"]),
+         "ms_is": "device time (time_ms, median of 5) at the ring's whole canvas; folder: the "
+                  f"folder's first panorama's spherical canvas; graph_ms: a CUDA graph of "
+                  f"{GRAPH_LAUNCHES} launches, replay time / {GRAPH_LAUNCHES}",
+         "library_note": ("a depthwise F.conv2d blur (cuDNN) and the resize products (cuBLAS) "
+                          "of the same levels" if name == "mb_reduce"
+                          else "none computes this function"),
+         "bound_unit": "the larger of bytes (inputs read once, outputs written once) at 3.35 "
+                       "TB/s and float32 operations (RENDER_* / MB_* constants) at 67 TFLOP/s",
+         "launches_note": "every rotational stitch of phases 5-11 (the planar stitches' linear "
+                          "blend runs none)"}
+        for name in RENDER_KERNELS
     ]}
     if REHEARSE:
         log(json.dumps(kernels))

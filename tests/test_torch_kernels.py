@@ -195,7 +195,8 @@ def test_library_is_named_by_source_hash():
     assert p == _build.library_path()
     assert {s.name for s in _build.CSRC.glob("*.cu")} == {"knn.cu", "knn_wide.cu", "knn_bf16.cu",
                                                            "sift_window.cu", "window_gather.cu",
-                                                           "ba_normals.cu", "ba_system.cu"}
+                                                           "ba_normals.cu", "ba_system.cu",
+                                                           "render.cu"}
     assert {"knn.cuh", "knn_bf16.cuh", "tma.cuh", "ba_direction.cuh"} <= {
         s.name for s in _build._sources()}
 
