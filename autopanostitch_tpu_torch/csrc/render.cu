@@ -1,49 +1,32 @@
-// The rotational render stage: the tile sampler and the multiband pyramid.
+// The rotational render stage's tile sampler.
 //
 // Replaces what the JAX package computes in `_render_tile_impl`
 // (autopanostitch_tpu/models/render.py:292, its `sample_one` and the
-// linear / none-* scans) and `multiband_blend`
-// (autopanostitch_tpu/ops/blend.py:80, with `_blur_nc` :39, `_down2` :69,
-// `_up2` :75): XLA fusions there, no Pallas kernel.
+// linear / none-* scans): XLA fusions there, no Pallas kernel. The multiband
+// pyramid that blends its multiband output is `csrc/render_pyramid.cu`.
 //
-//  1. `render_sample`: one thread a canvas pixel of a tile. The pixel's
-//     world ray (five projections), then for each contributor slot c in
-//     order: its camera (the k1 fixed point of `distort_pixels`, 6 steps,
-//     factor clamped at 0.25), the sample (nearest; bilinear; Keys a = -0.5
-//     bicubic, 16 clamped taps summed row by row; bicubic2x: bilinear taps
-//     on the 2x upsampled stack at 2u + 0.5, validity in the original
-//     bounds), the feather and angle weight and the gain. For multiband it
-//     writes each slot's colour and weight; for linear and none-* it blends
-//     the slots in registers and writes the uint8 tile and its coverage.
-//  2. `mb_reduce`: one pyramid level down, one launch a level: each block an
-//     8 x 32 tile of the coarser level of one plane (a contributor's R, G,
-//     B or weight): the source rows and columns it needs go to shared
-//     memory (replicate padding), then the 7-tap Gaussian along the rows,
-//     along the columns, and the 2x antialiased linear resize along the
-//     columns' axis then the rows' from compact tap tables (first index,
-//     taps) of `jax.image.resize`'s weights (`ops/sampling.resize_taps`).
-//     Level 0's weights are normalised over the contributors on the fly.
-//  3. `mb_collapse`: one level of the collapse, coarse to fine, one thread a
-//     pixel: the coarsest level blends its Gaussians; every finer one adds
-//     sum_c (g_c - up2(g_c')) g_w / max(sum_c g_w, 1e-8) to up2 of the
-//     coarser result; level 0 writes the float blend or the uint8 tile and
-//     its coverage.
+// `render_sample`: one thread a canvas pixel of a tile. The pixel's world
+// ray (five projections), then for each contributor slot c in order: its
+// camera (the k1 fixed point of `distort_pixels`, 6 steps, factor clamped at
+// 0.25), the sample (nearest; bilinear; Keys a = -0.5 bicubic, 16 clamped
+// taps summed row by row; bicubic2x: bilinear taps on the 2x upsampled stack
+// at 2u + 0.5, validity in the original bounds), the feather and angle
+// weight and the gain. For multiband it writes each slot's colour and
+// weight; for linear and none-* it blends the slots in registers and writes
+// the uint8 tile and its coverage.
 //
 // Arithmetic: this file is compiled with -fmad=false, so every product and
 // sum rounds as PyTorch's elementwise operators round them; the sampler's
 // plain version (`kernels/render.render_sample_plain`) writes its ray and
 // rotation products as explicit sums and divides by tensors, and the kernel
-// follows its order operation for operation. The pyramid's plain version
-// goes through cuDNN's convolution and cuBLAS's products, whose orders of
-// summation are their own.
+// follows its order operation for operation.
 //
-// What bounds them on an H100: bytes. The sampler reads its taps from the
+// What bounds it on an H100: bytes. The sampler reads its taps from the
 // image stack (L2-resident neighbourhoods) and writes 16 bytes a slot and
-// pixel for multiband (4 a pixel for the others); the pyramid reads level 0
-// once and writes a quarter of it a level. At the ring's canvas (~70 tiles
-// of 96 x 384, 6 slots) that is ~0.25 GB: ~0.1 ms at 3.35 TB/s. Every
-// output is written once by one thread in a fixed order: no atomics, so a
-// tile's result does not depend on the other tiles of its launch.
+// pixel for multiband (4 a pixel for the others): at the ring's canvas (~70
+// tiles of 96 x 384, 6 slots) ~0.25 GB, ~0.08 ms at 3.35 TB/s. Every output
+// is written once by one thread in a fixed order: no atomics, so a tile's
+// result does not depend on the other tiles of its launch.
 
 #include <cuda_runtime.h>
 
@@ -298,169 +281,6 @@ __global__ void __launch_bounds__(kThreads) render_sample_kernel(const SampleArg
   p.covered[o] = cov ? 1 : 0;
 }
 
-// ---------------------------------------------------------------- pyramid
-
-constexpr int kOY = 8, kOX = 32;  // a reduce block's tile of the coarser level
-constexpr int kMaxR = 8;  // blur radius (sigma <= 2.67)
-constexpr int kMaxT = 4;  // taps a 2x-down output (its window is inside 4 source pixels)
-constexpr int kSpanY = (kOY - 1) * 2 + kMaxT, kSpanX = (kOX - 1) * 2 + kMaxT;
-constexpr int kInY = kSpanY + 2 * kMaxR, kInX = kSpanX + 2 * kMaxR;
-
-// One level's planes: level 0 is the sampler's interleaved colour (B, C, h,
-// w, 3) and raw weights (B, C, h, w); a coarser level is (B, C, 4, h, w).
-struct LevelSrc {
-  const float* col;
-  const float* w;
-  const float* planes;
-  int C, h, w_;
-};
-
-// plane = (b C + c) 4 + ch; ch 3 is the contributor's (normalised) weight
-__device__ __forceinline__ float level_value(const LevelSrc& s, int plane, int y, int x) {
-  const size_t hw = static_cast<size_t>(s.h) * s.w_;
-  const size_t px = static_cast<size_t>(y) * s.w_ + x;
-  if (s.planes != nullptr) return s.planes[plane * hw + px];
-  const int bc = plane >> 2, ch = plane & 3;
-  if (ch < 3) return s.col[(bc * hw + px) * 3 + ch];
-  const float* wb = s.w + (bc / s.C) * s.C * hw + px;
-  float sum = 0.f;
-  for (int k = 0; k < s.C; ++k) sum = sum + wb[k * hw];
-  return sum > kEps ? s.w[bc * hw + px] / clamp_min(sum, kEps) : 0.f;
-}
-
-struct Taps {
-  const int* first;  // (out,)
-  const float* taps;  // (out, n)
-  int n;
-};
-
-__global__ void __launch_bounds__(kThreads)
-    mb_reduce_kernel(const LevelSrc src, int planes, int h2, int w2, const Taps ty, const Taps tx,
-                     const float* blur, int radius, float* out) {
-  __shared__ float s0[kInY][kInX];  // source rows and columns (replicated at the borders)
-  __shared__ float s1[kInY][kSpanX];  // blurred along the rows' axis
-  __shared__ float s2[kSpanY][kSpanX];  // ... and along the columns' axis
-  __shared__ float s3[kOY][kSpanX];  // resized along the columns' axis
-  const int j0 = blockIdx.y * kOY, i0 = blockIdx.x * kOX;
-  const int j1 = min(j0 + kOY, h2) - 1, i1 = min(i0 + kOX, w2) - 1;
-  const int ry0 = ty.first[j0], ny = ty.first[j1] + ty.n - ry0;
-  const int cx0 = tx.first[i0], nx = tx.first[i1] + tx.n - cx0;
-  const int nly = ny + 2 * radius, nlx = nx + 2 * radius, taps = 2 * radius + 1;
-  const int oy = j1 - j0 + 1, ox = i1 - i0 + 1;
-  for (int plane = blockIdx.z; plane < planes; plane += gridDim.z) {
-    for (int k = threadIdx.x; k < nly * nlx; k += kThreads) {
-      const int r = k / nlx, q = k - r * nlx;
-      const int y = min(max(ry0 - radius + r, 0), src.h - 1);
-      const int x = min(max(cx0 - radius + q, 0), src.w_ - 1);
-      s0[r][q] = level_value(src, plane, y, x);
-    }
-    __syncthreads();
-    for (int k = threadIdx.x; k < nly * nx; k += kThreads) {
-      const int r = k / nx, q = k - r * nx;
-      float a = 0.f;
-      for (int m = 0; m < taps; ++m) a = a + blur[m] * s0[r][q + m];
-      s1[r][q] = a;
-    }
-    __syncthreads();
-    for (int k = threadIdx.x; k < ny * nx; k += kThreads) {
-      const int r = k / nx, q = k - r * nx;
-      float a = 0.f;
-      for (int m = 0; m < taps; ++m) a = a + blur[m] * s1[r + m][q];
-      s2[r][q] = a;
-    }
-    __syncthreads();
-    for (int k = threadIdx.x; k < oy * nx; k += kThreads) {
-      const int jj = k / nx, q = k - jj * nx, j = j0 + jj;
-      const int r = ty.first[j] - ry0;
-      float a = 0.f;
-      for (int m = 0; m < ty.n; ++m) a = a + ty.taps[j * ty.n + m] * s2[r + m][q];
-      s3[jj][q] = a;
-    }
-    __syncthreads();
-    for (int k = threadIdx.x; k < oy * ox; k += kThreads) {
-      const int jj = k / ox, ii = k - jj * ox, i = i0 + ii;
-      const int q = tx.first[i] - cx0;
-      float a = 0.f;
-      for (int m = 0; m < tx.n; ++m) a = a + tx.taps[i * tx.n + m] * s3[jj][q + m];
-      out[(static_cast<size_t>(plane) * h2 + j0 + jj) * w2 + i] = a;
-    }
-    __syncthreads();
-  }
-}
-
-// up2 of one (h2, w2) plane at (y, x): along the rows' axis first, then the
-// columns', as `ops/blend._up2`
-__device__ __forceinline__ float up2(const float* plane, int w2, const Taps& uy, const Taps& ux,
-                                     int y, int x) {
-  const int fy = uy.first[y], fx = ux.first[x];
-  float a = 0.f;
-  for (int m = 0; m < ux.n; ++m) {
-    float col = 0.f;
-    for (int k = 0; k < uy.n; ++k)
-      col = col + uy.taps[y * uy.n + k] * plane[static_cast<size_t>(fy + k) * w2 + fx + m];
-    a = a + ux.taps[x * ux.n + m] * col;
-  }
-  return a;
-}
-
-enum CollapseOut { kLevel = 0, kFloat = 1, kUint8 = 2 };
-
-// coarse: the next coarser level (B, C, 4, h2, w2) and its result (B, 3,
-// h2, w2), both null at the coarsest level
-__global__ void __launch_bounds__(kThreads)
-    mb_collapse_kernel(const LevelSrc src, int B, const float* coarse, const float* coarse_out,
-                       int h2, int w2, const Taps uy, const Taps ux, int out_kind, float* out,
-                       unsigned char* out_u8, unsigned char* covered) {
-  const int C = src.C, h = src.h, w = src.w_;
-  const long long hw = static_cast<long long>(h) * w;
-  const long long gid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (gid >= B * hw) return;
-  const int b = static_cast<int>(gid / hw);
-  const int pix = static_cast<int>(gid - b * hw);
-  const int y = pix / w, x = pix - y * w;
-  const bool level0 = src.planes == nullptr;
-  float wsum = 0.f;  // level 0: the raw weights' sum, which normalises them
-  if (level0)
-    for (int c = 0; c < C; ++c) wsum = wsum + src.w[(static_cast<size_t>(b) * C + c) * hw + pix];
-  auto weight = [&](int c) {
-    if (!level0) return src.planes[(static_cast<size_t>(b * C + c) * 4 + 3) * hw + pix];
-    const float raw = src.w[(static_cast<size_t>(b) * C + c) * hw + pix];
-    return wsum > kEps ? raw / clamp_min(wsum, kEps) : 0.f;
-  };
-  float den = 0.f;
-  for (int c = 0; c < C; ++c) den = den + weight(c);
-  den = clamp_min(den, kEps);
-  float v[3];
-  for (int ch = 0; ch < 3; ++ch) {
-    float num = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const int plane = (b * C + c) * 4;
-      float g = level_value(src, plane + ch, y, x);
-      if (coarse != nullptr)
-        g = g - up2(coarse + static_cast<size_t>(plane + ch) * h2 * w2, w2, uy, ux, y, x);
-      num = num + g * weight(c);
-    }
-    v[ch] = coarse != nullptr
-                ? up2(coarse_out + static_cast<size_t>(b * 3 + ch) * h2 * w2, w2, uy, ux, y, x) +
-                      num / den
-                : num / den;
-  }
-  if (out_kind == kLevel) {
-    for (int ch = 0; ch < 3; ++ch) out[(static_cast<size_t>(b) * 3 + ch) * hw + pix] = v[ch];
-    return;
-  }
-  const float blended = wsum > kEps ? 1.f : 0.f;
-  const size_t o = static_cast<size_t>(b) * hw + pix;
-  if (out_kind == kFloat) {
-    for (int ch = 0; ch < 3; ++ch) out[3 * o + ch] = clamp_to(v[ch], 0.f, 1.f) * blended;
-    return;
-  }
-  const bool cov = wsum > 1e-3f;  // as the renderer finishes a tile
-  for (int ch = 0; ch < 3; ++ch)
-    out_u8[3 * o + ch] = to_u8((clamp_to(v[ch], 0.f, 1.f) * blended) * (cov ? 1.f : 0.f));
-  covered[o] = cov ? 1 : 0;
-}
-
 inline unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
@@ -484,47 +304,5 @@ extern "C" int apst_render_sample(const float* img, int n_img, int Hs, int Ws, i
                col, w, out, covered};
   for (int i = 0; i < 9; ++i) p.rr[i] = r_ref[i];
   render_sample_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// One level down: src level (h, w) -> out (B, C, 4, h2, w2). col / w give
-// level 0, planes a coarser one (the other pointers null).
-extern "C" int apst_mb_reduce(const float* col, const float* w, const float* planes, int B,
-                              int C, int h, int w_, int h2, int w2, const int* ty_first,
-                              const float* ty_taps, int nty, const int* tx_first,
-                              const float* tx_taps, int ntx, const float* blur, int radius,
-                              float* out, void* stream) {
-  const long long n_planes = 4LL * B * C;
-  if (B < 1 || C < 1 || h2 < 1 || w2 < 1 || nty < 1 || nty > kMaxT || ntx < 1 ||
-      ntx > kMaxT || radius < 0 || radius > kMaxR || n_planes > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const LevelSrc src{col, w, planes, C, h, w_};
-  const dim3 grid((w2 + kOX - 1) / kOX, (h2 + kOY - 1) / kOY,
-                  static_cast<unsigned int>(n_planes < 65535 ? n_planes : 65535));
-  mb_reduce_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      src, static_cast<int>(n_planes), h2, w2, Taps{ty_first, ty_taps, nty},
-      Taps{tx_first, tx_taps, ntx}, blur, radius, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// One level of the collapse at level (h, w): coarse / coarse_out null at
-// the coarsest level; out_kind 0 writes out (B, 3, h, w), 1 the float blend
-// out (B, h, w, 3), 2 the uint8 tile out_u8 (B, h, w, 3) and covered (B, h, w)
-// (both need level 0).
-extern "C" int apst_mb_collapse(const float* col, const float* w, const float* planes, int B,
-                                int C, int h, int w_, const float* coarse,
-                                const float* coarse_out, int h2, int w2, const int* uy_first,
-                                const float* uy_taps, int nuy, const int* ux_first,
-                                const float* ux_taps, int nux, int out_kind, float* out,
-                                unsigned char* out_u8, unsigned char* covered, void* stream) {
-  const long long n = static_cast<long long>(B) * h * w_;
-  if (B < 1 || C < 1 || h < 1 || w_ < 1 || out_kind < 0 || out_kind > 2 ||
-      (out_kind != kLevel && planes != nullptr) || (coarse != nullptr && (nuy < 1 || nux < 1)) ||
-      blocks_for(n) > 0x7fffffffu)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const LevelSrc src{col, w, planes, C, h, w_};
-  mb_collapse_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      src, B, coarse, coarse_out, h2, w2, Taps{uy_first, uy_taps, nuy},
-      Taps{ux_first, ux_taps, nux}, out_kind, out, out_u8, covered);
   return static_cast<int>(cudaGetLastError());
 }

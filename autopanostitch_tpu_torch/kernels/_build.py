@@ -32,8 +32,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# flags of one source only: the render kernels round every product and sum
-# on its own, as PyTorch's elementwise operators of their plain versions do
+# flags of one source only: the tile sampler rounds every product and sum on
+# its own, as PyTorch's elementwise operators of its plain version do (the
+# pyramid's `render_pyramid.cu` keeps FMA contraction)
 SOURCE_FLAGS = {"render.cu": ["-fmad=false"]}
 
 _lock = threading.Lock()
@@ -122,9 +123,9 @@ def _declare(lib):
     lib.apst_render_sample.argtypes = ([P, I, I, I, I, I] + [P] * 7 + [I] * 7 + [F] * 3
                                        + [P, F] + [P] * 5)
     lib.apst_render_sample.restype = I
-    lib.apst_mb_reduce.argtypes = [P, P, P] + [I] * 6 + [P, P, I, P, P, I, P, I, P, P]
+    lib.apst_mb_reduce.argtypes = [P, P, P] + [I] * 6 + [P, P, P, I] * 2 + [I, I, P, I, P]
     lib.apst_mb_reduce.restype = I
-    lib.apst_mb_collapse.argtypes = [P, P, P] + [I] * 4 + [P, P, I, I, P, P, I, P, P, I, I] + [P] * 4
+    lib.apst_mb_collapse.argtypes = [P, P, I, I, I, P, P, I, P, P, P, I, P]
     lib.apst_mb_collapse.restype = I
     lib.apst_noop.argtypes = [P]
     lib.apst_noop.restype = I

@@ -14,24 +14,28 @@ and returns the uint8 tile (T, th, tw, 3) and its coverage (T, th, tw).
 `multiband` is the Burt-Adelson blend of `autopanostitch_tpu/ops/blend.py:80`
 (its `_blur_nc`, `_down2`, `_up2`) over contributors stacked as (..., C, H,
 W, 3) colours and (..., C, H, W) weights: `mb_reduce` builds the Gaussian
-levels (blur and 2x down, one launch a level), `mb_collapse` blends and
-collapses them (one launch a level), and the last step writes either the
-float blend or, as the renderer finishes a tile, the uint8 tile and its
-coverage (sum of weights > 1e-3).
+levels (the blur and the 2x down folded into one filter an axis,
+`folded_taps`; one launch a level), `mb_collapse` blends and collapses every
+level in one launch, tile by tile of level 0 (`collapse_regions`), and
+writes either the float blend or, as the renderer finishes a tile, the
+uint8 tile and its coverage (sum of weights > 1e-3). `pyramid_plan` builds
+both kernels' tables and raises for a pyramid they cannot take.
 
-Kernels: `csrc/render.cu` (`render_sample`, `mb_reduce`, `mb_collapse`).
-CUDA tensors launch them or raise; CPU tensors take the plain versions
-(`render_sample_plain`, `mb_reduce_plain`, `mb_collapse_plain`,
-`multiband_plain`). The plain sampler's geometry is `ops/projections`',
-written to round on the card as the kernel does (`render.cu` is compiled
-without FMA contraction). This module imports only the leaf modules
+Kernels: `csrc/render.cu` (`render_sample`) and `csrc/render_pyramid.cu`
+(`mb_reduce`, `mb_collapse`). CUDA tensors launch them or raise; CPU tensors
+take the plain versions (`render_sample_plain`, `mb_reduce_plain`,
+`mb_collapse_plain`, `multiband_plain`). The plain sampler's geometry is
+`ops/projections`', written to round on the card as the kernel does
+(`render.cu` is compiled without FMA contraction; the pyramid's source is
+not, and its plain versions are held within 1e-5). This module imports only the leaf modules
 `ops/projections` and `ops/sampling`, which import nothing of the package,
 so the kernel and ops layers never import each other in a cycle.
 
 Launch counting: `sample_launches`, `reduce_launches` and
-`collapse_launches` count the kernels' launches; `plain_on_cuda` counts
-the plain versions' calls on CUDA tensors (a comparison's, never the main
-path's).
+`collapse_launches` count the kernels' launches (`reduce_launch` and
+`collapse_launch` launch uncounted, for the probe's variants);
+`plain_on_cuda` counts the plain versions' calls on CUDA tensors (a
+comparison's, never the main path's).
 """
 
 from __future__ import annotations
@@ -218,54 +222,151 @@ def render_sample(images4, fine4, R, K, gains, k1, sel, sel_ok, origins, canvas:
 
 # ------------------------------------------------------------------ pyramid
 
+class ReduceLevel(NamedTuple):
+    """`mb_reduce`'s tables for one level down: the folded blur-and-resize
+    filters along each axis (`folded_taps`) as (first, taps, new, n) with
+    the tables on the device (new: int32, 1 where an output's taps differ
+    from the one before), and the largest source window (rows, columns) of
+    a `_REDUCE_TILE` tile of the coarser level."""
+    y: tuple
+    x: tuple
+    span: tuple
+
+
 class PyramidPlan(NamedTuple):
     """A multiband pyramid's shape: `bands` (capped as the reference caps
-    it), `sigma`, level sizes [(h, w)], and per level l < bands - 1 the
-    compact tap tables (`sampling.resize_taps`) of down (h_l -> h_l+1, w_l
-    -> w_l+1) and up (h_l+1 -> h_l, w_l+1 -> w_l), as (first, taps, n)
-    tensors on the device, and the blur's taps there."""
+    it), `sigma`, level sizes [(h, w)]; per level l < bands - 1
+    `mb_reduce`'s tables down to level l + 1 (`ReduceLevel`) and the compact
+    up tables (`sampling.resize_taps`) from level l + 1 back to l, as
+    ((first_y, taps_y, n_y), (first_x, taps_x, n_x)) with the tables on the
+    device; per level `mb_collapse`'s regions of its `_COLLAPSE_TILE` tiles
+    of level 0 (`collapse_regions`), as (rows (tiles_y, 2), columns
+    (tiles_x, 2)) int32 tensors on the device, and the largest region's
+    (rows, columns)."""
     bands: int
     sigma: float
     sizes: tuple
-    down: tuple  # ((first_y, taps_y, n_y), (first_x, taps_x, n_x)) a level
+    down: tuple
     up: tuple
-    blur: torch.Tensor
+    regions: tuple
+    region_max: tuple
 
 
-_OUT_TILE = (8, 32)  # `mb_reduce`'s block tile of the coarser level (kOY, kOX)
-_MAX_DOWN_TAPS = 4
+_REDUCE_TILE = (16, 32)  # `mb_reduce`'s tile of the coarser level (kRTY, kRTX)
+_COLLAPSE_TILE = (16, 64)  # `mb_collapse`'s tile of level 0 (kCTY, kCTX)
+_COLLAPSE_PIXELS = (1024, 512, 256)  # a region's pixels at levels 0, 1, 2+ (kCThreads x 4, 2, 1)
+_MAX_LEVELS = 8  # kMaxLevels
+_MAX_UP_TAPS = 2  # kMaxUp
 _MAX_RADIUS = 8
+_SMEM_BYTES = 232448  # a block's shared memory on an H100 (kSmemMax)
 
 
-def _table(in_size: int, out_size: int, device, block: int = 0):
+def folded_taps(in_size: int, out_size: int, sigma: float):
+    """The Gaussian blur (`sampling.gaussian_blur`'s taps, replicate
+    borders) followed by the 2x antialiased linear resize (`resize_taps`)
+    along one axis, as one filter, in float64: (first (out,) int32, taps
+    (out, n) float64) with out[j] = sum_t taps[j, t] x[first[j] + t]. The
+    border indices fold into the edge pixel's tap, and each window lies
+    inside [0, in_size)."""
+    k = samp.gaussian_kernel1d(sigma).double().numpy()
+    r = len(k) // 2
+    first_d, taps_d = samp.resize_taps(in_size, out_size, "linear")
+    n = taps_d.shape[1]
+    idx = np.clip(first_d[:, None, None] + np.arange(n)[None, :, None]
+                  + np.arange(-r, r + 1)[None, None, :], 0, in_size - 1)
+    val = taps_d.astype(np.float64)[:, :, None] * k[None, None, :]
+    lo, hi = idx.min((1, 2)), idx.max((1, 2))
+    width = int((hi - lo + 1).max())
+    first = np.minimum(lo, in_size - width).astype(np.int32)
+    taps = np.zeros((out_size, width))
+    np.add.at(taps, (np.arange(out_size)[:, None, None], idx - first[:, None, None]), val)
+    return first, taps
+
+
+def _window_span(first: np.ndarray, n: int, tile: int) -> int:
+    """The most source rows a tile of `tile` outputs reads."""
+    starts = np.arange(0, len(first), tile)
+    ends = np.minimum(starts + tile, len(first)) - 1
+    return int((first[ends] + n - first[starts]).max())
+
+
+def reduce_smem_bytes(span_y: int, span_x: int, ny: int, nx: int) -> int:
+    """`mb_reduce`'s shared memory for a span_y x span_x source window and
+    ny x nx folded taps (`reduce_smem_floats` in `csrc/render_pyramid.cu`):
+    two stage buffers (colour rows 3 span_x wide padded to 3 mod 32 floats,
+    weight rows padded to an odd width, the tile's tables), the row pass's
+    output (4 span_y rows of 33) and level 0's weight sums and their
+    reciprocals."""
+    pitch_c = 3 * span_x + (35 - 3 * span_x % 32) % 32
+    pitch_w = span_x | 1
+    ty, tx = _REDUCE_TILE
+    tables = 2 * tx + tx * nx + 2 * ty + ty * ny
+    return 4 * (2 * (span_y * (pitch_c + pitch_w) + tables) + 4 * span_y * (tx + 1)
+                + 2 * span_y * pitch_w)
+
+
+def _reduce_level(a: tuple, b: tuple, sigma: float, device) -> ReduceLevel:
+    axes, spans = [], []
+    for in_size, out_size, tile in zip(a, b, _REDUCE_TILE):
+        first, taps = folded_taps(in_size, out_size, sigma)
+        taps = taps.astype(np.float32)
+        new = np.concatenate([[True], (taps[1:] != taps[:-1]).any(1)]).astype(np.int32)
+        axes.append((torch.as_tensor(first, device=device), torch.as_tensor(taps, device=device),
+                     torch.as_tensor(new, device=device), taps.shape[1]))
+        spans.append(_window_span(first, taps.shape[1], tile))
+    if reduce_smem_bytes(*spans, axes[0][3], axes[1][3]) > _SMEM_BYTES:
+        raise ValueError(f"multiband: a {a} -> {b} level at sigma {sigma} does not fit mb_reduce")
+    return ReduceLevel(axes[0], axes[1], tuple(spans))
+
+
+def collapse_regions(sizes, tile: int):
+    """Along one axis of the level sizes [n_0, n_1, ...]: per level an
+    (tiles, 2) int32 array of each level-0 tile's region there (first
+    index, count). Level 0's is the tile itself; level l + 1's holds every
+    tap up2 (`resize_taps` from n_l+1 to n_l) reads for level l's region."""
+    starts = np.arange(0, sizes[0], tile)
+    regions = [np.stack([starts, np.minimum(tile, sizes[0] - starts)], 1)]
+    for fine, coarse in zip(sizes, sizes[1:]):
+        first, taps = samp.resize_taps(coarse, fine, "linear")
+        s, c = regions[-1][:, 0], regions[-1][:, 1]
+        lo = first[s]
+        regions.append(np.stack([lo, first[s + c - 1] + taps.shape[1] - lo], 1))
+    return [r.astype(np.int32) for r in regions]
+
+
+def _up_table(in_size: int, out_size: int, device):
     first, taps = samp.resize_taps(in_size, out_size, "linear")
-    n = taps.shape[1]
-    if block:  # the source rows of a block's outputs must fit its shared tile
-        ends = np.minimum(np.arange(0, out_size, block) + block, out_size) - 1
-        span = first[ends] + n - first[np.arange(0, out_size, block)]
-        if n > _MAX_DOWN_TAPS or span.max() > (block - 1) * 2 + _MAX_DOWN_TAPS:
-            raise ValueError(f"multiband: a {in_size} -> {out_size} resize does not fit mb_reduce")
-    return (torch.as_tensor(first, device=device), torch.as_tensor(taps, device=device), n)
+    if taps.shape[1] > _MAX_UP_TAPS:
+        raise ValueError(f"multiband: a {in_size} -> {out_size} up2 does not fit mb_collapse")
+    return (torch.as_tensor(first, device=device), torch.as_tensor(taps, device=device),
+            taps.shape[1])
 
 
 @functools.lru_cache(maxsize=64)
 def pyramid_plan(H: int, W: int, bands: int, sigma: float, device: torch.device) -> PyramidPlan:
-    """The pyramid of an (H, W) blend, cached per shape and device."""
+    """The pyramid of an (H, W) blend, cached per shape and device. Raises
+    for one the kernels cannot take: more than 8 bands, a blur wider than
+    17 taps."""
     max_levels = max(1, int(math.floor(math.log2(max(min(H, W), 2)))) - 1)
     bands = max(1, min(bands, max_levels))
+    if bands > _MAX_LEVELS:
+        raise ValueError(f"multiband: mb_collapse takes at most {_MAX_LEVELS} bands, not {bands}")
+    if samp.gaussian_kernel1d(sigma).shape[0] // 2 > _MAX_RADIUS:
+        raise ValueError(f"multiband: sigma {sigma} needs a blur wider than mb_reduce takes")
     sizes = [(H, W)]
     for _ in range(bands - 1):
         h, w = sizes[-1]
         sizes.append(((h + 1) // 2, (w + 1) // 2))
-    down = tuple((_table(a[0], b[0], device, _OUT_TILE[0]),
-                   _table(a[1], b[1], device, _OUT_TILE[1]))
-                 for a, b in zip(sizes, sizes[1:]))
-    up = tuple((_table(b[0], a[0], device), _table(b[1], a[1], device))
+    down = tuple(_reduce_level(a, b, sigma, device) for a, b in zip(sizes, sizes[1:]))
+    up = tuple((_up_table(b[0], a[0], device), _up_table(b[1], a[1], device))
                for a, b in zip(sizes, sizes[1:]))
-    blur = samp.gaussian_kernel1d(sigma, device)
-    if blur.shape[0] // 2 > _MAX_RADIUS:
-        raise ValueError(f"multiband: sigma {sigma} needs a blur wider than mb_reduce takes")
-    return PyramidPlan(bands, sigma, tuple(sizes), down, up, blur)
+    per_axis = [collapse_regions([s[ax] for s in sizes], _COLLAPSE_TILE[ax]) for ax in (0, 1)]
+    region_max = tuple((int(ry[:, 1].max()), int(rx[:, 1].max())) for ry, rx in zip(*per_axis))
+    if any(r * c > _COLLAPSE_PIXELS[min(lvl, 2)] for lvl, (r, c) in enumerate(region_max)):
+        raise ValueError(f"multiband: an {H} x {W} pyramid's regions do not fit mb_collapse")
+    regions = tuple((torch.as_tensor(ry, device=device), torch.as_tensor(rx, device=device))
+                    for ry, rx in zip(*per_axis))
+    return PyramidPlan(bands, sigma, tuple(sizes), down, up, regions, region_max)
 
 
 def _level0_plain(colors, weights):
@@ -317,6 +418,29 @@ def _check_mb(colors, weights, name: str):
         raise ValueError(f"{name}: colors and weights must be float32 on one device")
 
 
+def reduce_launch(colors, weights, plan: PyramidPlan, variant: int = 0):
+    """`mb_reduce` on CUDA tensors, uncounted: one `apst_mb_reduce` launch a
+    level. variant 0 is the kernel; 1 (its loads only) and 2 (its arithmetic
+    only) are `tools/pyramid_probe.py`'s, whose levels hold no result."""
+    lead = colors.shape[:-4]
+    C, H, W = colors.shape[-4:-1]
+    B = math.prod(lead)
+    col, w = colors.contiguous(), weights.contiguous()
+    src, levels = None, []
+    stream = torch.cuda.current_stream(colors.device).cuda_stream
+    for (h, w_), (h2, w2), lv in zip(plan.sizes, plan.sizes[1:], plan.down):
+        out = torch.empty(lead + (C, 4, h2, w2), dtype=torch.float32, device=colors.device)
+        err = _build.library().apst_mb_reduce(
+            None if src is not None else col.data_ptr(), None if src is not None else w.data_ptr(),
+            None if src is None else src.data_ptr(), B, C, h, w_, h2, w2,
+            *(t.data_ptr() for t in lv.y[:3]), lv.y[3], *(t.data_ptr() for t in lv.x[:3]),
+            lv.x[3], *lv.span, out.data_ptr(), variant, stream)
+        _build.check(err, "apst_mb_reduce")
+        levels.append(out)
+        src = out
+    return levels
+
+
 def mb_reduce(colors, weights, plan: PyramidPlan):
     """The Gaussian levels 1 .. bands - 1 of a multiband blend, each (..., C,
     4, h, w): R, G, B and the normalised weight, blurred and halved level by
@@ -325,25 +449,45 @@ def mb_reduce(colors, weights, plan: PyramidPlan):
     _check_mb(colors, weights, "mb_reduce")
     if _device(colors, "mb_reduce"):
         return mb_reduce_plain(colors, weights, plan)
+    levels = reduce_launch(colors, weights, plan)
+    reduce_launches += len(levels)
+    return levels
+
+
+def collapse_launch(colors, weights, levels, plan: PyramidPlan, to_u8: bool = False,
+                    variant: int = 0):
+    """`mb_collapse` on CUDA tensors, uncounted: one `apst_mb_collapse`
+    launch for every level (variant as `reduce_launch`'s)."""
+    dev = colors.device
     lead = colors.shape[:-4]
     C, H, W = colors.shape[-4:-1]
-    B = math.prod(lead)
+    if len(levels) != plan.bands - 1 or any(
+            g.shape != lead + (C, 4) + s or not g.is_contiguous()
+            for g, s in zip(levels, plan.sizes[1:])):
+        raise ValueError("mb_collapse: levels must be mb_reduce's for this plan")
     col, w = colors.contiguous(), weights.contiguous()
-    src, levels = None, []
-    stream = torch.cuda.current_stream(colors.device).cuda_stream
-    for (h2, w2), ((fy, ty, ny), (fx, tx, nx)), (h, w_) in zip(plan.sizes[1:], plan.down,
-                                                                plan.sizes):
-        out = torch.empty(lead + (C, 4, h2, w2), dtype=torch.float32, device=colors.device)
-        err = _build.library().apst_mb_reduce(
-            None if src is not None else col.data_ptr(), None if src is not None else w.data_ptr(),
-            None if src is None else src.data_ptr(), B, C, h, w_, h2, w2, fy.data_ptr(),
-            ty.data_ptr(), ny, fx.data_ptr(), tx.data_ptr(), nx, plan.blur.data_ptr(),
-            plan.blur.shape[0] // 2, out.data_ptr(), stream)
-        _build.check(err, "apst_mb_reduce")
-        reduce_launches += 1
-        levels.append(out)
-        src = out
-    return levels
+    ptrs, ints = [], []
+    for lvl, ((h, w_), (rows, cols), (mr, mc)) in enumerate(zip(plan.sizes, plan.regions,
+                                                                plan.region_max)):
+        coarsest = lvl == plan.bands - 1
+        (fy, ty, ny), (fx, tx, nx) = ((None, None, 0),) * 2 if coarsest else plan.up[lvl]
+        ptrs += [levels[lvl - 1].data_ptr() if lvl else None, rows.data_ptr(), cols.data_ptr()]
+        ptrs += [None if t is None else t.data_ptr() for t in (fy, ty, fx, tx)]
+        ints += [h, w_, ny, nx, mr, mc]
+    if to_u8:
+        u8 = torch.empty(lead + (H, W, 3), dtype=torch.uint8, device=dev)
+        covered = torch.empty(lead + (H, W), dtype=torch.bool, device=dev)
+        outs, kind = (None, u8.data_ptr(), covered.data_ptr()), 2
+    else:
+        out = torch.empty(lead + (H, W, 3), dtype=torch.float32, device=dev)
+        outs, kind = (out.data_ptr(), None, None), 1
+    err = _build.library().apst_mb_collapse(
+        col.data_ptr(), w.data_ptr(), math.prod(lead), C, plan.bands,
+        ctypes.cast((ctypes.c_void_p * len(ptrs))(*ptrs), ctypes.c_void_p),
+        ctypes.cast((ctypes.c_int * len(ints))(*ints), ctypes.c_void_p), kind, *outs,
+        variant, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "apst_mb_collapse")
+    return (u8, covered) if to_u8 else out
 
 
 def mb_collapse(colors, weights, levels, plan: PyramidPlan, to_u8: bool = False):
@@ -354,40 +498,9 @@ def mb_collapse(colors, weights, levels, plan: PyramidPlan, to_u8: bool = False)
     _check_mb(colors, weights, "mb_collapse")
     if _device(colors, "mb_collapse"):
         return mb_collapse_plain(colors, weights, levels, plan, to_u8)
-    dev = colors.device
-    lead = colors.shape[:-4]
-    C, H, W = colors.shape[-4:-1]
-    B = math.prod(lead)
-    col, w = colors.contiguous(), weights.contiguous()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    coarse_out = None
-    for lvl in range(plan.bands - 1, -1, -1):
-        h, w_ = plan.sizes[lvl]
-        coarse = levels[lvl] if lvl < plan.bands - 1 else None
-        (fy, ty, ny), (fx, tx, nx) = plan.up[lvl] if coarse is not None else ((None, None, 0),) * 2
-        h2, w2 = plan.sizes[lvl + 1] if coarse is not None else (0, 0)
-        out = u8 = covered = None
-        if lvl > 0:
-            kind, out = 0, torch.empty((B, 3, h, w_), dtype=torch.float32, device=dev)
-        elif to_u8:
-            kind = 2
-            u8 = torch.empty(lead + (H, W, 3), dtype=torch.uint8, device=dev)
-            covered = torch.empty(lead + (H, W), dtype=torch.bool, device=dev)
-        else:
-            kind, out = 1, torch.empty(lead + (H, W, 3), dtype=torch.float32, device=dev)
-        err = _build.library().apst_mb_collapse(
-            col.data_ptr() if lvl == 0 else None, w.data_ptr() if lvl == 0 else None,
-            levels[lvl - 1].data_ptr() if lvl > 0 else None, B, C, h, w_,
-            None if coarse is None else coarse.data_ptr(),
-            None if coarse_out is None else coarse_out.data_ptr(), h2, w2,
-            None if fy is None else fy.data_ptr(), None if ty is None else ty.data_ptr(), ny,
-            None if fx is None else fx.data_ptr(), None if tx is None else tx.data_ptr(), nx,
-            kind, None if out is None else out.data_ptr(), None if u8 is None else u8.data_ptr(),
-            None if covered is None else covered.data_ptr(), stream)
-        _build.check(err, "apst_mb_collapse")
-        collapse_launches += 1
-        coarse_out = out
-    return (u8, covered) if to_u8 else out
+    out = collapse_launch(colors, weights, levels, plan, to_u8)
+    collapse_launches += 1
+    return out
 
 
 def multiband_plain(colors, weights, bands: int = 3, sigma: float = 1.0, to_u8: bool = False):

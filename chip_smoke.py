@@ -114,7 +114,8 @@ Phases, each printing its own lines:
      members, pairs and accepted pairs, f within 5e-4, panoramas within 1
      LSB on average); a failing rank fails the phase. The rehearsal runs
      11a and 11c over gloo on the CPU and 11b as two CPU ranks.
-  12. the render kernels (`csrc/render.cu`) against their plain versions
+  12. the render kernels (`csrc/render.cu`, `csrc/render_pyramid.cu`)
+     against their plain versions
      on the ring's recorded render inputs (phase 5's images, cameras, gains
      and k1; run last, so that no stitch's timing follows its large plain
      runs): `render_sample` in all five projections x {nearest, bicubic2x}
@@ -124,10 +125,13 @@ Phases, each printing its own lines:
      and on an odd-sized 301 x 1003 band: float outputs (the sampler's
      colours and weights, the pyramid's levels, the collapse's float blend)
      within 1e-5, uint8 at most 1 apart on at most 0.1 % of the covered
-     pixels, coverage equal, a repeat launch bit-identical; then each kernel
-     timed beside its plain version (and the reduce beside a depthwise
-     `F.conv2d` blur with the resize products) and its bound at the ring's
-     and the folder's whole canvases.
+     pixels, coverage equal, a repeat launch bit-identical; the pyramid
+     also on the middle band of phase 7's planar canvas, where
+     `composite_band`'s multiband must launch 2 + 1 kernels and no plain
+     version; then each kernel timed beside its plain version (and the
+     reduce beside a depthwise `F.conv2d` blur with the resize products)
+     and its bound at the ring's and the folder's whole canvases, and the
+     pyramid at the planar band.
 Phases 5-11 each count the kernels' launches from 0 and fail if a kernel of
 the path never launched (in 11b on either rank) or if `ba_normals`, off the
 main path, did, or if a plain version of a render kernel ran on the card;
@@ -1815,17 +1819,16 @@ def phase_multichip(dev, pano100, gate, single: dict, multi):
 # division or a sine 1) as `csrc/render.cu` writes them: the sampler's ray a
 # pixel (RENDER_RAY_OPS) and each slot's camera, k1 fixed point (6 steps),
 # bilinear taps on the 2x stack, weight and gain (RENDER_SLOT_OPS, the main
-# path's bicubic2x with k1); the pyramid's blur (7 taps, twice) a source
-# value and its 2x-down taps (4 a value, once along each axis); the
-# collapse's weight and its three channels' up2 (4 taps), Laplacian and
-# weighted sum a slot (MB_COLLAPSE_SLOT_OPS), and the coarser result's up2,
-# the division and the finish a pixel (MB_COLLAPSE_PIXEL_OPS)
+# path's bicubic2x with k1). `csrc/render_pyramid.cu`'s reduce does 2
+# operations a folded tap (`pyramid_ops`); its collapse a contributor's
+# pixel: the weight, three channels' up2 (2 taps along the rows, 2 along
+# the columns), Laplacian and weighted sum (MB_COLLAPSE_SLOT_OPS), and a
+# pixel the coarser result's up2, the division and the finish
+# (MB_COLLAPSE_PIXEL_OPS)
 RENDER_RAY_OPS = 25
 RENDER_SLOT_OPS = 140
-MB_BLUR_OPS = 28
-MB_DOWN_OPS = 8
-MB_COLLAPSE_SLOT_OPS = 52
-MB_COLLAPSE_PIXEL_OPS = 42
+MB_COLLAPSE_SLOT_OPS = 29
+MB_COLLAPSE_PIXEL_OPS = 30
 RENDER_MODES = ("planar", "cylindrical", "spherical", "equirectangular", "stereographic")
 ODD_BAND = (301, 1003)  # th, tw of the odd-sized multiband band
 
@@ -1957,13 +1960,14 @@ def render_checks(dev, call, max_tiles: int) -> dict:
     return errs
 
 
-def planar_band_check(dev, band: dict) -> dict:
+def planar_band_check(dev, band: dict) -> tuple:
     """The multiband kernels at the planar path's rank and shape: a band of
     phase 7's canvas ((N, 512, Wc), every image of the scan a contributor,
     no leading dims), warped as `composite_band` warps it. Each kernel
     against its plain version, and `composite_band`'s own multiband (through
     `ops/blend`, which must launch the kernels and no plain version) against
-    the plain multiband of the same band, at the render gates."""
+    the plain multiband of the same band, at the render gates. Returns the
+    record and the band's (colours, weights)."""
     from autopanostitch_tpu_torch.kernels import render as kr
     from autopanostitch_tpu_torch.models import planar
 
@@ -1982,14 +1986,14 @@ def planar_band_check(dev, band: dict) -> dict:
     got = planar.composite_band(**band)
     launched = (kr.reduce_launches - before[0], kr.collapse_launches - before[1],
                 kr.plain_on_cuda - before[2])
-    if dev.type == "cuda" and launched != (plan.bands - 1, plan.bands, 0):
+    if dev.type == "cuda" and launched != (plan.bands - 1, 1, 0):
         raise AssertionError(f"render planar band: composite_band launched (mb_reduce, "
                              f"mb_collapse, plain versions) {launched}")
     rec.update(u8_agreement(*got, *kr.multiband_plain(cols, ws, band["bands"], to_u8=True)))
     log(f"render: planar band {tuple(cols.shape)}, levels {plan.sizes}, covered "
         f"{float(got[1].float().mean()):.3f}: {json.dumps(rec)}")
     render_gate("planar band", rec)
-    return rec
+    return rec, (cols, ws)
 
 
 def render_times(dev, label: str, call) -> dict:
@@ -1997,10 +2001,7 @@ def render_times(dev, label: str, call) -> dict:
     and, for the pyramid's reduce, the library's depthwise convolution and
     resize products, with their bounds, at a recorded call's whole canvas
     (the main path: its projection, bicubic2x, k1, multiband)."""
-    import torch
-
     from autopanostitch_tpu_torch.kernels import render as kr
-    from autopanostitch_tpu_torch.ops import sampling as samp
 
     args, kw = call
     interp, bands = kw["interp"], kw["bands"]
@@ -2020,6 +2021,45 @@ def render_times(dev, label: str, call) -> dict:
                      stack.numel() * 4 + small + P * C * 16, FP32_FLOPS)
     out["render_sample"] = dict(ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=b, bound_by=by)
     cols, ws = kr.render_sample(*sargs)
+    out.update(pyramid_times(dev, cols, ws, bands))
+    # a cross-check of time_ms: back-to-back launches in a graph
+    out["render_sample"]["graph_ms"] = graph_ms(lambda: kr.render_sample(*sargs), dev)
+    log_times(label, out, RENDER_KERNELS)
+    return out
+
+
+def log_times(label: str, out: dict, names) -> None:
+    for name in names:
+        r = out[name]
+        log(f"render {label} {name}: {r['ms']:.4f} ms (from a graph {r['graph_ms']:.4f} ms), "
+            f"plain {r['plain_ms']:.4f} ms"
+            + (f", library {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "")
+            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{100 * r['bound_ms'] / r['ms']:.1f} % of it")
+    log(f"render {label}: {json.dumps(out['shape'])}; the whole multiband "
+        f"{out['multiband_ms']:.4f} ms, plain {out['multiband_plain_ms']:.4f} ms")
+
+
+def pyramid_ops(plan, planes: int) -> float:
+    """The reduce's float32 operations: per plane and level, 2 a folded tap
+    along the rows at every (source row, coarser column), then along the
+    columns at every coarser pixel."""
+    ops = 0.0
+    for (h, _), (h2, w2), lv in zip(plan.sizes, plan.sizes[1:], plan.down):
+        ops += planes * 2 * (h * w2 * lv.x[3] + h2 * w2 * lv.y[3])
+    return ops
+
+
+def pyramid_times(dev, cols, ws, bands: int) -> dict:
+    """Device times (`time_ms`, and `graph_ms`) of `mb_reduce` and
+    `mb_collapse` (uint8 finish), their plain versions and, for the reduce,
+    the library's depthwise convolution and resize products, with their
+    bounds, on (..., C, H, W) contributors; the whole multiband's times."""
+    from autopanostitch_tpu_torch.kernels import render as kr
+    from autopanostitch_tpu_torch.ops import sampling as samp
+
+    C, th, tw = ws.shape[-3:]
+    B = ws.numel() // (C * th * tw)
     plan = kr.pyramid_plan(th, tw, bands, 1.0, dev)
     levels = kr.mb_reduce(cols, ws, plan)
     g0 = kr._level0_plain(cols, ws)
@@ -2030,53 +2070,44 @@ def render_times(dev, label: str, call) -> dict:
             g = samp.down2(samp.gaussian_blur(g, plan.sigma))
 
     lvl_px = [h * w for h, w in plan.sizes]
-    planes = T * C * 4
-    red_ops = sum(planes * (lvl_px[i] * MB_BLUR_OPS + plan.sizes[i + 1][0] * plan.sizes[i][1]
-                            * MB_DOWN_OPS + lvl_px[i + 1] * MB_DOWN_OPS)
-                  for i in range(plan.bands - 1))
+    planes = B * C * 4
     lvl_bytes = sum(planes * n * 4 for n in lvl_px[1:])
-    b, by = bound_ms(red_ops, P * C * 16 + lvl_bytes, FP32_FLOPS)
+    out = {}
+    b, by = bound_ms(pyramid_ops(plan, planes), B * C * lvl_px[0] * 16 + lvl_bytes, FP32_FLOPS)
     out["mb_reduce"] = dict(ms=time_ms(lambda: kr.mb_reduce(cols, ws, plan), dev),
                             plain_ms=time_ms(lambda: kr.mb_reduce_plain(cols, ws, plan), dev),
-                            library_ms=time_ms(library_reduce, dev), bound_ms=b, bound_by=by)
-    col_ops = sum(T * n * (C * MB_COLLAPSE_SLOT_OPS + MB_COLLAPSE_PIXEL_OPS) for n in lvl_px)
-    b, by = bound_ms(col_ops, P * C * 16 + lvl_bytes + P * 4, FP32_FLOPS)
+                            library_ms=time_ms(library_reduce, dev), bound_ms=b, bound_by=by,
+                            graph_ms=graph_ms(lambda: kr.mb_reduce(cols, ws, plan), dev))
+    col_ops = sum(B * n * (C * MB_COLLAPSE_SLOT_OPS + MB_COLLAPSE_PIXEL_OPS) for n in lvl_px)
+    b, by = bound_ms(col_ops, B * C * lvl_px[0] * 16 + lvl_bytes + B * lvl_px[0] * 4, FP32_FLOPS)
     out["mb_collapse"] = dict(
         ms=time_ms(lambda: kr.mb_collapse(cols, ws, levels, plan, True), dev),
         plain_ms=time_ms(lambda: kr.mb_collapse_plain(cols, ws, levels, plan, True), dev),
-        library_ms=None, bound_ms=b, bound_by=by)
+        library_ms=None, bound_ms=b, bound_by=by,
+        graph_ms=graph_ms(lambda: kr.mb_collapse(cols, ws, levels, plan, True), dev))
     out["multiband_ms"] = time_ms(lambda: kr.multiband(cols, ws, bands, to_u8=True), dev)
     out["multiband_plain_ms"] = time_ms(
         lambda: kr.multiband_plain(cols, ws, bands, to_u8=True), dev)
-    calls = {"render_sample": lambda: kr.render_sample(*sargs),
-             "mb_reduce": lambda: kr.mb_reduce(cols, ws, plan),
-             "mb_collapse": lambda: kr.mb_collapse(cols, ws, levels, plan, True)}
-    for name in RENDER_KERNELS:  # a cross-check of time_ms: back-to-back launches in a graph
-        out[name]["graph_ms"] = graph_ms(calls[name], dev)
-    for name in RENDER_KERNELS:
-        r = out[name]
-        log(f"render {label} {name}: {r['ms']:.4f} ms (from a graph {r['graph_ms']:.4f} ms), "
-            f"plain {r['plain_ms']:.4f} ms"
-            + (f", library {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "")
-            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"{100 * r['bound_ms'] / r['ms']:.1f} % of it")
-    log(f"render {label}: {json.dumps(out['shape'])}; the whole multiband "
-        f"{out['multiband_ms']:.4f} ms, plain {out['multiband_plain_ms']:.4f} ms")
     return out
 
 
 def phase_render(dev, ring_call, folder_call, planar_band, max_tiles: int) -> dict:
-    """Phase 12: the render kernels (`csrc/render.cu`) against their plain
-    versions on the ring's recorded render inputs (`render_checks`) and on a
-    band of the planar canvas (`planar_band_check`), then timed at the
-    ring's and the folder's whole canvases (`render_times`)."""
+    """Phase 12: the render kernels (`csrc/render.cu`,
+    `csrc/render_pyramid.cu`) against their plain versions on the ring's
+    recorded render inputs (`render_checks`) and on a band of the planar
+    canvas (`planar_band_check`), then timed at the ring's and the folder's
+    whole canvases (`render_times`) and the pyramid at the planar band
+    (`pyramid_times`)."""
     errs = render_checks(dev, ring_call, max_tiles)
-    band = planar_band_check(dev, planar_band)
+    band, (cols, ws) = planar_band_check(dev, planar_band)
     for k in ("reduce_err", "collapse_err", "u8_share", "u8_max"):
         errs[k] = max(errs[k], band[k])
     out = {"errors": errs}
     out["ring"] = render_times(dev, "ring", ring_call)
     out["folder"] = render_times(dev, "folder", folder_call)
+    out["planar_band"] = dict(pyramid_times(dev, cols, ws, planar_band["bands"]),
+                              shape={"band": list(ws.shape)})
+    log_times("planar band", out["planar_band"], ("mb_reduce", "mb_collapse"))
     return out
 
 
@@ -2296,7 +2327,9 @@ def main() -> int:
          "launches_note": "off the main path since ba_system: the launches are phase 9b's "
                           "checks only, which no count includes"}
     ] + [
-        {"name": name, "route": "cuda", "source": "autopanostitch_tpu_torch/csrc/render.cu",
+        {"name": name, "route": "cuda",
+         "source": "autopanostitch_tpu_torch/csrc/" + ("render.cu" if name == "render_sample"
+                                                       else "render_pyramid.cu"),
          "replaces": ("autopanostitch_tpu/models/render.py:292" if name == "render_sample"
                       else "autopanostitch_tpu/ops/blend.py:80"),
          "replaces_note": ("_render_tile_impl's sampling and its linear / none-* scans"
@@ -2318,14 +2351,19 @@ def main() -> int:
          "shape": render["ring"]["shape"],
          "folder": dict({k: render["folder"][name][k] for k in keys + ("graph_ms",)},
                         shape=render["folder"]["shape"]),
+         **({} if name == "render_sample" else {"planar_band": dict(
+             {k: render["planar_band"][name][k] for k in keys + ("graph_ms",)},
+             shape=render["planar_band"]["shape"])}),
          "ms_is": "device time (time_ms, median of 5) at the ring's whole canvas; folder: the "
-                  f"folder's first panorama's spherical canvas; graph_ms: a CUDA graph of "
+                  f"folder's first panorama's spherical canvas; planar_band: the middle band "
+                  f"of phase 7's canvas; graph_ms: a CUDA graph of "
                   f"{GRAPH_LAUNCHES} launches, replay time / {GRAPH_LAUNCHES}",
          "library_note": ("a depthwise F.conv2d blur (cuDNN) and the resize products (cuBLAS) "
                           "of the same levels" if name == "mb_reduce"
                           else "none computes this function"),
          "bound_unit": "the larger of bytes (inputs read once, outputs written once) at 3.35 "
-                       "TB/s and float32 operations (RENDER_* / MB_* constants) at 67 TFLOP/s",
+                       "TB/s and float32 operations (RENDER_* / MB_* constants, pyramid_ops) at "
+                       "67 TFLOP/s",
          "launches_note": "every rotational stitch of phases 5-11 (the planar stitches' linear "
                           "blend runs none)"}
         for name in RENDER_KERNELS

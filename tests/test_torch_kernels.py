@@ -196,7 +196,7 @@ def test_library_is_named_by_source_hash():
     assert {s.name for s in _build.CSRC.glob("*.cu")} == {"knn.cu", "knn_wide.cu", "knn_bf16.cu",
                                                            "sift_window.cu", "window_gather.cu",
                                                            "ba_normals.cu", "ba_system.cu",
-                                                           "render.cu"}
+                                                           "render.cu", "render_pyramid.cu"}
     assert {"knn.cuh", "knn_bf16.cuh", "tma.cuh", "ba_direction.cuh"} <= {
         s.name for s in _build._sources()}
 

@@ -1,6 +1,6 @@
-"""The render stage's kernels (`kernels/render.py`, `csrc/render.cu`): the
-tile sampler `render_sample` and the multiband pyramid (`mb_reduce`,
-`mb_collapse`), and the resize tables they read.
+"""The render stage's kernels (`kernels/render.py`; `csrc/render.cu`,
+`csrc/render_pyramid.cu`): the tile sampler `render_sample` and the
+multiband pyramid (`mb_reduce`, `mb_collapse`), and the tables they read.
 
 On the CPU:
 - `render_sample_plain` (with `multiband_plain` for multiband) against the
@@ -12,8 +12,11 @@ On the CPU:
 - `multiband_plain` against the JAX package's `multiband_blend` at odd
   sizes and 1-4 bands: atol 1e-4 (`test_torch_render.py`'s tolerance);
 - `sampling.resize_taps` expanded back to dense equal to
-  `resize_weights` exactly, and every pyramid level size fits
-  `mb_reduce`'s shared tile; the cached `resize_axis` equal to the
+  `resize_weights` exactly; `mb_reduce`'s folded blur-and-resize tables
+  equal to the blur then the 2x down in float64, and every level size's
+  fitting its shared memory; `mb_collapse`'s regions holding every tap up2
+  reads, for every level size and band count; `pyramid_plan` raising for
+  what the kernels cannot take; the cached `resize_axis` equal to the
   uncached product;
 - the renderer's batching and the device form of `assemble_tiles`;
 - the planar band compositor's multiband (`models/planar.composite_band`,
@@ -27,9 +30,9 @@ On the card (`cuda`-marked, skipped here): each kernel against its plain
 version: the sampler's colours and weights within 1e-5, its uint8 tiles at
 most one level apart on at most 0.1 % of covered pixels with equal
 coverage; the pyramid's levels within 1e-5 and its uint8 output under the
-same gate, also at the planar band's rank and shape (N, 512, odd width); a
-repeat launch bit-identical and a tile's result independent of the other
-tiles of its launch:
+same gate, also at the planar band's rank and shape (N, 512, odd width)
+and with 40 contributors; a repeat launch bit-identical and a tile's result
+independent of the other tiles of its launch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_render_kernels.py -q
 """
@@ -194,16 +197,87 @@ def test_resize_taps_expand_to_resize_weights(in_size, out_size):
 
 
 def test_every_pyramid_fits_mb_reduce():
-    """`pyramid_plan` accepts every level size from 2 to 1,100 px (its
-    tables' windows fit `mb_reduce`'s shared tile) and caps the bands as the
+    """`pyramid_plan` accepts every level size from 2 to 1,100 px and the
+    planar bands' 1,920 px: at sigma 1 and 2 the folded tables' source
+    window of any `mb_reduce` tile fits its shared memory (and spans no more
+    than the tile's own rows and the filter's taps). It caps the bands as the
     reference does."""
-    for n in range(2, 1100):
-        kr._table(n, (n + 1) // 2, "cpu", 8)
-        kr._table(n, (n + 1) // 2, "cpu", 32)
+    for sigma in (1.0, 2.0):
+        for n in list(range(2, 1101)) + [1920]:
+            first, taps = kr.folded_taps(n, (n + 1) // 2, sigma)
+            width = taps.shape[1]
+            spans = [kr._window_span(first, width, t) for t in kr._REDUCE_TILE]
+            for span, t in zip(spans, kr._REDUCE_TILE):
+                assert span <= min(n, 2 * (t - 1) + width + 1), (n, sigma, span)
+            assert kr.reduce_smem_bytes(*spans, width, width) <= kr._SMEM_BYTES, (n, sigma, spans)
     plan = kr.pyramid_plan(96, 384, 3, 1.0, torch.device("cpu"))
     assert plan.sizes == ((96, 384), (48, 192), (24, 96))
+    assert [lv.span for lv in plan.down] == [(40, 72), (36, 72)]
     assert kr.pyramid_plan(5, 9, 4, 1.0, torch.device("cpu")).bands == 1
     assert kr.pyramid_plan(8, 9, 4, 1.0, torch.device("cpu")).bands == 2
+
+
+def test_pyramid_plan_raises_where_the_kernels_cannot_take_it():
+    """Nine bands (mb_collapse holds eight) and a blur of radius 9 (mb_reduce
+    takes 8) raise in `pyramid_plan`, before any launch."""
+    cpu = torch.device("cpu")
+    assert kr.pyramid_plan(1024, 1024, 8, 1.0, cpu).bands == 8
+    with pytest.raises(ValueError, match="at most 8 bands"):
+        kr.pyramid_plan(1024, 1024, 9, 1.0, cpu)
+    with pytest.raises(ValueError, match="wider than mb_reduce"):
+        kr.pyramid_plan(96, 384, 3, 3.0, cpu)
+
+
+@pytest.mark.parametrize("sigma", [1.0, 2.0])
+@pytest.mark.parametrize("n", [2, 3, 5, 7, 21, 37, 53, 301, 1003, 1920])
+def test_folded_taps_match_blur_then_down2(n, sigma):
+    """`mb_reduce`'s folded table along one axis, applied to random rows in
+    float64, equals the Gaussian blur (replicate borders) then the 2x
+    antialiased linear resize, both in float64 from the same float32 taps
+    and weights."""
+    import torch.nn.functional as F
+
+    first, taps = kr.folded_taps(n, (n + 1) // 2, sigma)
+    assert first.dtype == np.int32 and taps.dtype == np.float64
+    assert (first >= 0).all() and (first + taps.shape[1] <= n).all()
+    x = np.random.default_rng(n).uniform(size=(5, n))
+    k = tsamp.gaussian_kernel1d(sigma).double()
+    r = k.shape[0] // 2
+    blurred = F.conv1d(F.pad(torch.as_tensor(x)[:, None], (r, r), mode="replicate"),
+                       k[None, None])[:, 0].numpy()
+    ref = blurred @ tsamp.resize_weights(n, (n + 1) // 2, "linear").astype(np.float64)
+    got = (x[:, first[:, None] + np.arange(taps.shape[1])] * taps).sum(-1)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("bands", [1, 2, 3, 4])
+def test_collapse_regions_cover_up2_taps(bands, monkeypatch):
+    """For every tile of every level-0 size from 2 to 1,100 px along either
+    axis, `collapse_regions` tiles level 0 exactly and each coarser level's
+    region holds every tap that up2 reads for the finer level's region."""
+    import functools
+
+    monkeypatch.setattr(tsamp, "resize_taps", functools.lru_cache(None)(tsamp.resize_taps))
+    for tile in kr._COLLAPSE_TILE:
+        for n in range(2, 1101):
+            sizes = [n]
+            for _ in range(bands - 1):
+                sizes.append((sizes[-1] + 1) // 2)
+            regs = kr.collapse_regions(sizes, tile)
+            assert len(regs) == bands
+            start, count = regs[0][:, 0], regs[0][:, 1]
+            assert start[0] == 0 and (start[1:] == start[:-1] + count[:-1]).all()
+            assert start[-1] + count[-1] == n and count.max() <= tile
+            for fine, coarse, rf, rc in zip(sizes, sizes[1:], regs, regs[1:]):
+                first, taps = tsamp.resize_taps(coarse, fine, "linear")
+                assert taps.shape[1] <= kr._MAX_UP_TAPS
+                # every row of each tile's finer region, tile after tile
+                rows = np.concatenate([np.arange(s, s + c) for s, c in rf])
+                at = np.concatenate([[0], np.cumsum(rf[:, 1])[:-1]])
+                lo = np.minimum.reduceat(first[rows], at)
+                hi = np.maximum.reduceat(first[rows], at) + taps.shape[1]
+                assert (lo >= rc[:, 0]).all() and (hi <= rc.sum(1)).all(), (n, tile, bands)
+                assert (rc[:, 0] >= 0).all() and (rc.sum(1) <= coarse).all()
 
 
 def test_cached_resize_axis_matches_uncached():
@@ -338,21 +412,21 @@ def test_render_sample_kernel_matches_plain_on_card(mode, interp, blend, use_k1)
     assert all(torch.equal(a[2:4], b) for a, b in zip(got, part))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bands", [1, 2, 3, 4])
-@pytest.mark.parametrize("shape", [(2, 5, 37, 53), (1, 9, 96, 384), (3, 4, 21, 30),
-                                   (9, 512, 1003), (6, 301, 257)])
-def test_multiband_kernels_match_plain_on_card(shape, bands):
-    """(T, C, H, W) tiles of the rotational path and (N, H, W) bands of the
-    planar path (every image a contributor, no leading dims)."""
-    dev = _cuda()
-    rng = np.random.default_rng(11)
+def _pyramid_inputs(shape, dev, seed=11):
+    """Random colours and weights of (..., C, H, W) contributors, a third of
+    the weights zero and an uncovered corner."""
+    rng = np.random.default_rng(seed)
     H, W = shape[-2:]
     cols = torch.as_tensor(rng.uniform(size=shape + (3,)).astype(np.float32), device=dev)
     w = rng.uniform(size=shape) * (rng.uniform(size=shape) > 0.3)
     w[..., : H // 3, : W // 4] = 0.0
-    w = torch.as_tensor(w.astype(np.float32), device=dev)
-    plan = kr.pyramid_plan(H, W, bands, 1.0, dev)
+    return cols, torch.as_tensor(w.astype(np.float32), device=dev)
+
+
+def _pyramid_kernels_match_plain(cols, w, bands):
+    """Levels within 1e-5 of the plain version's, the float blend from the
+    same levels within 1e-5, the uint8 gate, a repeat launch equal."""
+    plan = kr.pyramid_plan(*cols.shape[-3:-1], bands, 1.0, cols.device)
     levels = kr.mb_reduce(cols, w, plan)
     ref_levels = kr.mb_reduce_plain(cols, w, plan)
     assert len(levels) == plan.bands - 1
@@ -364,6 +438,39 @@ def test_multiband_kernels_match_plain_on_card(shape, bands):
     _u8_gate(*kr.multiband(cols, w, bands, to_u8=True),
              *kr.multiband_plain(cols, w, bands, to_u8=True))
     assert torch.equal(kr.multiband(cols, w, bands), kr.multiband(cols, w, bands))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bands", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", [(2, 5, 37, 53), (1, 9, 96, 384), (3, 4, 21, 30),
+                                   (9, 512, 1003), (6, 301, 257)])
+def test_multiband_kernels_match_plain_on_card(shape, bands):
+    """(T, C, H, W) tiles of the rotational path and (N, H, W) bands of the
+    planar path (every image a contributor, no leading dims)."""
+    _pyramid_kernels_match_plain(*_pyramid_inputs(shape, _cuda()), bands)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 40, 96, 384), (40, 512, 257)])
+def test_multiband_kernels_match_plain_with_40_contributors_on_card(shape):
+    """Nothing caps the contributors: 40 at a rotational tile and at a
+    planar band (one an image), under the gates above."""
+    _pyramid_kernels_match_plain(*_pyramid_inputs(shape, _cuda(), seed=40), 3)
+
+
+@pytest.mark.cuda
+def test_multiband_tile_independent_of_its_batch_on_card():
+    """A tile blended alone and inside a batch of 66 (the ring's canvas)
+    gives the same bytes: its levels, its float blend, its uint8 tile and
+    coverage."""
+    cols, w = _pyramid_inputs((66, 6, 96, 384), _cuda(), seed=66)
+    one = slice(17, 18)
+    plan = kr.pyramid_plan(96, 384, 3, 1.0, cols.device)
+    for a, b in zip(kr.mb_reduce(cols, w, plan), kr.mb_reduce(cols[one], w[one], plan)):
+        assert torch.equal(a[one], b)
+    assert torch.equal(kr.multiband(cols, w)[one], kr.multiband(cols[one], w[one]))
+    for a, b in zip(kr.multiband(cols, w, to_u8=True), kr.multiband(cols[one], w[one], to_u8=True)):
+        assert torch.equal(a[one], b)
 
 
 @pytest.mark.cuda
@@ -399,7 +506,7 @@ def test_planar_band_multiband_kernels_on_card(interp):
     u8, cov = tplanar.composite_band(*args, "multiband", 3, interp)
     torch.cuda.synchronize()
     assert (kr.reduce_launches - before[0], kr.collapse_launches - before[1],
-            kr.plain_on_cuda - before[2]) == (2, 3, 0)
+            kr.plain_on_cuda - before[2]) == (2, 1, 0)
     cols, ws = tplanar.warp_band(*args, interp)
     _u8_gate(u8, cov, *kr.multiband_plain(cols, ws, 3, to_u8=True))
     assert 0.3 < float(cov.float().mean()) < 1
