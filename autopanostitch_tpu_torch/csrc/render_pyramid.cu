@@ -44,10 +44,12 @@
 //     level over the item's regions; it runs up2 of each coarser level's
 //     colour along the rows into shared memory and along the columns per
 //     pixel, and accumulates sum_c (g_c - up2(g'_c)) w_c and sum_c w_c of
-//     every level in registers. After the last contributor it collapses
-//     coarse to fine in shared memory (up2 of the coarser result plus the
-//     level's blend) and writes level 0's uint8 tile and coverage (or the
-//     float blend). Level 0's weights are normalised by their sum over the
+//     levels 0 and 1 in registers and of the coarser levels (at most one
+//     pixel a thread) in shared memory, each thread its own words, so that
+//     three blocks an SM hold them without spills. After the last
+//     contributor it collapses coarse to fine in shared memory (up2 of the
+//     coarser result plus the level's blend) and writes level 0's uint8
+//     tile and coverage (or the float blend). Level 0's weights are normalised by their sum over the
 //     contributors once a pixel, at the end (sum_c lap_c w_c / sum_c w_c),
 //     not once a contributor. An item's regions and up2 tables are read into
 //     shared memory once, at its first stage. No level's result reaches
@@ -482,7 +484,7 @@ constexpr int kCThreads = 256, kCWarps = kCThreads / 32;
 constexpr int kCTY = 16, kCTX = 64;  // a work item's tile of level 0
 constexpr int kRows0 = kCTY * kCTX / kCThreads;  // level-0 pixels a thread: one column, 4 rows
 constexpr int kSlots1 = 2;  // level-1 pixels a thread (its region holds at most 512)
-constexpr int kMaxLevels = 8;  // levels >= 2: one pixel a thread (at most 256)
+constexpr int kMaxLevels = 8;  // levels >= 2: one pixel a thread (at most 256), sums in A
 constexpr int kMaxUp = 2;  // taps of a 2x linear up along one axis
 
 struct CLevel {
@@ -497,6 +499,8 @@ struct CLevel {
   const float* tx;
   int h, w, ny, nx;
   int off;  // the level's planes in a stage buffer (floats)
+  int aoff;  // levels >= 2: its sums in A (floats), 4 planes of `an`
+  int an;  // levels >= 2: the largest region's pixels
   int voff;  // its up2 rows (of the next coarser level's colour) in V
   int toff;  // its up2 taps for the item's region in an item's tables: rows, then columns
 };
@@ -506,7 +510,7 @@ struct CollapseArgs {
   const float* w;  // level 0: (B, C, H, W), raw
   int C, L, tiles_y, tiles_x, items;
   int buf_floats, v_floats, o_floats;  // shared memory: two stages, the up2 rows, two results
-  int tab_floats;  // and two items' up2 tables (`Up`, 4 floats a row or column)
+  int tab_floats;  // and two items' up2 tables (`Up`, 4 floats a row or column), then A
   int kind;  // 1: the float blend, 2: the uint8 tile and its coverage
   float* out;  // kind 1: (B, H, W, 3)
   unsigned char* u8;  // kind 2: (B, H, W, 3)
@@ -653,6 +657,7 @@ __global__ void __launch_bounds__(kCThreads, 3)
   float* const V = smem + 2 * a.buf_floats;  // every level's up2 rows
   float* const O = V + a.v_floats;  // two levels' results, level l's at (l & 1) o_floats
   Up* const tabs = reinterpret_cast<Up*>(O + 2 * a.o_floats);  // the item's up2 tables, by parity
+  float* const A = O + 2 * a.o_floats + 2 * a.tab_floats;  // the sums of levels >= 2
   if (kVariant == kComputeOnly) {
     const int n = 2 * a.buf_floats + a.v_floats + 2 * a.o_floats;
     for (int k = threadIdx.x; k < n; k += kCThreads) smem[k] = 0.5f;
@@ -664,7 +669,6 @@ __global__ void __launch_bounds__(kCThreads, 3)
   constexpr int kStep0 = kCThreads / kCTX;
   const int x0 = tid % kCTX, y0 = tid / kCTX;  // level 0: a column, rows y0 + kStep0 q
   float n0[kRows0][3], d0[kRows0], n1[kSlots1][3], d1[kSlots1];
-  float nh[kMaxLevels - 2][3], dh[kMaxLevels - 2];
   Region g0{}, g1{};
   int b = 0, par = 0;
   if (kVariant != kComputeOnly) collapse_issue(a, item, 0, nullptr, smem);
@@ -689,8 +693,11 @@ __global__ void __launch_bounds__(kCThreads, 3)
       for (int q = 0; q < kRows0; ++q) n0[q][0] = n0[q][1] = n0[q][2] = d0[q] = 0.f;
 #pragma unroll
       for (int q = 0; q < kSlots1; ++q) n1[q][0] = n1[q][1] = n1[q][2] = d1[q] = 0.f;
-#pragma unroll
-      for (int q = 0; q < kMaxLevels - 2; ++q) nh[q][0] = nh[q][1] = nh[q][2] = dh[q] = 0.f;
+      for (int l = 2; l < a.L; ++l) {  // each thread its own sums: no barrier
+        const CLevel& v = a.lv[l];
+        if (tid < v.an)
+          for (int k = 0; k < 4; ++k) A[v.aoff + k * v.an + tid] = 0.f;
+      }
     }
     const int4* const reg = regions[par];
     const Up* const tab = tabs + par * (a.tab_floats / 4);
@@ -728,9 +735,14 @@ __global__ void __launch_bounds__(kCThreads, 3)
         for (int q = 0; q < kSlots1; ++q)
           level_pixel<false>(a, 1, reg, tab, buf, V, tid + q * kCThreads, n1[q], d1[q], nullptr);
       }
-#pragma unroll
-      for (int l = 2; l < kMaxLevels; ++l)
-        if (l < a.L) level_pixel<false>(a, l, reg, tab, buf, V, tid, nh[l - 2], dh[l - 2], nullptr);
+      for (int l = 2; l < a.L; ++l) {
+        const CLevel& v = a.lv[l];
+        if (tid >= v.an) continue;
+        float* const s = A + v.aoff + tid;
+        float num[3] = {s[0], s[v.an], s[2 * v.an]}, den = s[3 * v.an];
+        level_pixel<false>(a, l, reg, tab, buf, V, tid, num, den, nullptr);
+        s[0] = num[0], s[v.an] = num[1], s[2 * v.an] = num[2], s[3 * v.an] = den;
+      }
     }
     if (c + 1 == a.C) {  // the item's collapse, coarse to fine
 #pragma unroll
@@ -748,7 +760,11 @@ __global__ void __launch_bounds__(kCThreads, 3)
         }
         if (kVariant == kLoadsOnly) continue;
         if (l >= 2) {
-          level_pixel<true>(a, l, reg, tab, nullptr, V, tid, nh[l - 2], dh[l - 2], Ol);
+          if (tid < v.an) {
+            const float* const s = A + v.aoff + tid;
+            float num[3] = {s[0], s[v.an], s[2 * v.an]}, den = s[3 * v.an];
+            level_pixel<true>(a, l, reg, tab, nullptr, V, tid, num, den, Ol);
+          }
         } else if (l == 1) {
 #pragma unroll
           for (int q = 0; q < kSlots1; ++q)
@@ -877,7 +893,7 @@ extern "C" int apst_mb_collapse(const float* col, const float* w, int B, int C, 
   a.out = out;
   a.u8 = u8;
   a.covered = covered;
-  long long buf = 0, vf = 0, of = 0, tf = 0;
+  long long buf = 0, vf = 0, of = 0, tf = 0, af = 0;
   for (int l = 0; l < L; ++l) {
     CLevel& v = a.lv[l];
     const void* const* p = ptrs + 7 * l;
@@ -900,6 +916,11 @@ extern "C" int apst_mb_collapse(const float* col, const float* w, int B, int C, 
       return static_cast<int>(cudaErrorInvalidValue);
     v.off = static_cast<int>(buf);
     buf += 4 * px;
+    if (l >= 2) {
+      v.aoff = static_cast<int>(af);
+      v.an = static_cast<int>(px);
+      af += 4 * px;
+    }
     if (l + 1 < L) {
       const int* nc = ints + 6 * (l + 1);
       if (v.fy == nullptr || v.ty == nullptr || v.fx == nullptr || v.tx == nullptr ||
@@ -915,7 +936,7 @@ extern "C" int apst_mb_collapse(const float* col, const float* w, int B, int C, 
   a.tiles_y = (a.lv[0].h + kCTY - 1) / kCTY;
   a.tiles_x = (a.lv[0].w + kCTX - 1) / kCTX;
   const long long items = static_cast<long long>(B) * a.tiles_y * a.tiles_x;
-  const size_t smem = static_cast<size_t>(2 * buf + vf + 2 * of + 2 * tf) * sizeof(float);
+  const size_t smem = static_cast<size_t>(2 * buf + vf + 2 * of + 2 * tf + af) * sizeof(float);
   if (items > 0x7fffffffLL || smem > static_cast<size_t>(kSmemMax))
     return static_cast<int>(cudaErrorInvalidValue);
   a.items = static_cast<int>(items);

@@ -9,7 +9,9 @@ B1's template instances, split over `knn.cu`, `knn_wide.cu` and
 may add flags of its own (`SOURCE_FLAGS`). The library lands in
 `autopanostitch_tpu_torch/_build/`, named by a hash of the sources (every
 `*.cu` and every header, `*.cuh`, they include) and the flags, so a changed
-source rebuilds and an unchanged one loads at once.
+source rebuilds and an unchanged one loads at once. nvcc's output (ptxas's
+register and spill report) is kept beside the library, `<name>.log`, so that
+a cached load reports it too.
 
 `nvcc` is looked up as `$CUDA_HOME/bin/nvcc`, then on `PATH`, then in the
 toolkit's default install location.
@@ -40,7 +42,7 @@ SOURCE_FLAGS = {"render.cu": ["-fmad=false"]}
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of the last nvcc run (None = loaded from cache)
-build_log = ""  # nvcc's output of the last build (-Xptxas -v register report)
+build_log = ""  # nvcc's output of the library's build (-Xptxas -v register report)
 
 
 def nvcc() -> str:
@@ -77,6 +79,8 @@ def build() -> pathlib.Path:
     global build_seconds, build_log
     out = library_path()
     if out.exists():
+        log = out.with_suffix(".log")
+        build_log = log.read_text() if log.exists() else ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -100,7 +104,12 @@ def build() -> pathlib.Path:
         build_seconds = time.perf_counter() - t0
         if failed:
             raise RuntimeError(f"nvcc failed ({failed[0]}):\n{build_log}")
-        os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
+        with open(os.path.join(work, "lib.log"), "w") as f:
+            f.write(build_log)
+        # atomic, the log first: a concurrent process never loads a partial
+        # file and finds the log of any library it loads
+        os.replace(os.path.join(work, "lib.log"), out.with_suffix(".log"))
+        os.replace(tmp, out)
     return out
 
 

@@ -2161,6 +2161,8 @@ def main() -> int:
         _build.library()
         log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s "
             f"(nvcc {'ran' if _build.build_seconds is not None else 'skipped, cached'})")
+        if "bytes spill" not in _build.build_log:  # a cached library without its report
+            raise AssertionError(f"no ptxas register report beside {path.name}: delete it")
         spills = []
         for line in _build.build_log.splitlines():
             if "registers" in line or "spill" in line:

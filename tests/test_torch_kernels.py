@@ -201,6 +201,19 @@ def test_library_is_named_by_source_hash():
         s.name for s in _build._sources()}
 
 
+def test_cached_library_reports_its_build_log(tmp_path, monkeypatch):
+    """A library loaded from the cache brings back ptxas's report of its
+    build (what chip_smoke's spill gate reads), and none where it has no log."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "build_log", "")
+    lib = _build.library_path()
+    lib.write_bytes(b"")
+    assert _build.build() == lib and _build.build_log == ""
+    report = "ptxas info    : Used 76 registers\n    0 bytes stack frame, 0 bytes spill stores\n"
+    lib.with_suffix(".log").write_text(report)
+    assert _build.build() == lib and _build.build_log == report
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,with_self", [(4, False), (2, True), (8, False)])
 def test_knn_kernel_matches_plain_on_card(k, with_self):
