@@ -178,7 +178,8 @@ def main(argv=None):
     ap.add_argument("--log", default=None)
     ap.add_argument("--cache", default=None, help="per-stage artifact cache dir (resume)")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="capture a torch.profiler trace into DIR/trace.json")
+                    help="capture a torch.profiler trace into DIR/trace.json and print "
+                         "the tracer's span table and counters (also DIR/spans.txt)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to stitch on (default cuda; no fallback)")
     args = ap.parse_args(argv)

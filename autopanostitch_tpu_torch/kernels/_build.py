@@ -29,6 +29,8 @@ import tempfile
 import threading
 import time
 
+from autopanostitch_tpu_torch.utils import trace
+
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -143,9 +145,12 @@ def _declare(lib):
 
 
 def library():
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call, in the span
+    `kernels.load`)."""
     global _lib
-    with _lock:
+    if _lib is not None:
+        return _lib
+    with trace.span("kernels.load"), _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             _declare(lib)

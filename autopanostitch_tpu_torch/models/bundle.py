@@ -31,6 +31,7 @@ import torch
 from autopanostitch_tpu_torch.config import BundleConfig
 from autopanostitch_tpu_torch.kernels import ba as kba
 from autopanostitch_tpu_torch.ops import geometry as geo
+from autopanostitch_tpu_torch.utils import trace
 
 _K1_PRIOR_SIGMA = 0.05
 _K1_MEAN_WEIGHT = 1.0e4
@@ -549,6 +550,7 @@ class _PhaseGraph:
             self.launches = kba.captured - before
         global graph_captures
         graph_captures += 1
+        trace.count("ba.graph_captures")
 
     def __call__(self, inp: dict):
         global graph_replays
@@ -557,6 +559,7 @@ class _PhaseGraph:
         self.graph.replay()
         kba.launches += self.launches  # the ba_system launches the graph holds ran again
         graph_replays += 1
+        trace.count("ba.graph_replays")
         return self.outputs
 
 
@@ -571,10 +574,14 @@ def _run_phase(inp: dict, pd: int, iters: int, st: _Statics, graphs: bool):
     process; eagerly otherwise. A failed capture or replay raises."""
     run = functools.partial(_lm_phase, pd=pd, iters=iters, st=st)
     dev = inp["f"].device
+    trace.count("ba.phases")
+    trace.count("ba.lm_iterations", iters)
     if dev.type != "cuda" or not graphs:
+        trace.tag(ran="eager")
         return run(inp)
     key = (dev, pd, iters, st, tuple(inp["u_i"].shape), inp["Rb"].shape[0])
     graph = _graphs.get(key)
+    trace.tag(ran="replay" if graph is not None else "capture")
     if graph is None:
         graph = _graphs[key] = _PhaseGraph(inp, run)
     return graph(inp)
@@ -626,37 +633,40 @@ def run_incremental_ba(R0, f_init, cx, cy, u_i, u_j, w, loc_pairs, order, seed: 
     n = len(f_init)
     pd = 5 if with_k1 else 4
     st = _statics(cfg)
-    specs, uptos = _phase_plan(f_init, loc_pairs, pair_extents(w), order, seed, cfg)
 
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
-    ints = torch.split(t(np.concatenate([s.ints for s in specs]), torch.long),
-                       [len(s.ints) for s in specs])
-    floats = torch.split(t(np.concatenate([s.floats for s in specs])),
-                         [len(s.floats) for s in specs])
-    R = t(R0)
-    f = t(f_init)
-    k1 = torch.zeros(n, device=device)
-    cx_d, cy_d = t(cx), t(cy)
-    u_i_d, u_j_d, w_d = t(u_i), t(u_j), t(w)
+    with trace.span("ba.upload"):
+        specs, uptos = _phase_plan(f_init, loc_pairs, pair_extents(w), order, seed, cfg)
+        ints = torch.split(t(np.concatenate([s.ints for s in specs]), torch.long),
+                           [len(s.ints) for s in specs])
+        floats = torch.split(t(np.concatenate([s.floats for s in specs])),
+                             [len(s.floats) for s in specs])
+        R = t(R0)
+        f = t(f_init)
+        k1 = torch.zeros(n, device=device)
+        cx_d, cy_d = t(cx), t(cy)
+        u_i_d, u_j_d, w_d = t(u_i), t(u_j), t(w)
 
     phase_costs = []
     cost = torch.zeros((), device=device)
     for spec, ints_p, floats_p, upto in zip(specs, ints, floats, uptos):
-        inp = _phase_inputs(spec, ints_p, floats_p, R, f, k1, cx_d, cy_d, u_i_d, u_j_d, w_d)
-        Rb, fb, kb, cost = _run_phase(inp, pd, spec.iters, st, graphs)
-        k = len(spec.act)
-        act_d = ints_p[:k]
-        R = R.index_copy(0, act_d, Rb[:k])
-        f = f.index_copy(0, act_d, fb[:k])
-        k1 = k1.index_copy(0, act_d, kb[:k])
-        cost = cost.clone()  # a graph's output: its next replay rewrites it
+        with trace.span("ba.phase"):
+            inp = _phase_inputs(spec, ints_p, floats_p, R, f, k1, cx_d, cy_d, u_i_d, u_j_d, w_d)
+            Rb, fb, kb, cost = _run_phase(inp, pd, spec.iters, st, graphs)
+            k = len(spec.act)
+            act_d = ints_p[:k]
+            R = R.index_copy(0, act_d, Rb[:k])
+            f = f.index_copy(0, act_d, fb[:k])
+            k1 = k1.index_copy(0, act_d, kb[:k])
+            cost = cost.clone()  # a graph's output: its next replay rewrites it
         if upto is not None:
             phase_costs.append((upto, cost, spec.npair))
 
     # RMSE-history anomaly check (one deferred host read of the phase costs)
-    costs = torch.stack([c for _, c, _ in phase_costs]).cpu().numpy() if phase_costs else []
+    with trace.span("ba.readback"):
+        costs = torch.stack([c for _, c, _ in phase_costs]).cpu().numpy() if phase_costs else []
     rmse_hist = []
     for (upto, _, npair), c in zip(phase_costs, costs):
         rmse = float(np.sqrt(max(float(c), 0.0) / max(npair, 1)))
@@ -704,62 +714,63 @@ def run_bundle_adjustment(members, pairs, pair_idx, pair_mask, inliers, Hs, xy, 
     indices; xy (N, K, 2) numpy keypoints). Returns a dict with member-local
     Cameras (tensors on `device`), the noRotation flag, focal init, seed and
     the member-local pair list."""
-    members = np.asarray(members)
-    n = len(members)
-    remap = {int(g): k for k, g in enumerate(members)}
-    sel = np.array([p for p in range(len(pairs))
-                    if int(pairs[p, 0]) in remap and int(pairs[p, 1]) in remap], int)
-    loc_pairs = np.array([[remap[int(i)], remap[int(j)]] for i, j in pairs[sel]], int)
-    loc_sizes = sizes[members]
-    loc_counts = counts[np.ix_(members, members)]
+    with trace.span("ba.init"):  # focal, initial cameras, the pairs' inliers
+        members = np.asarray(members)
+        n = len(members)
+        remap = {int(g): k for k, g in enumerate(members)}
+        sel = np.array([p for p in range(len(pairs))
+                        if int(pairs[p, 0]) in remap and int(pairs[p, 1]) in remap], int)
+        loc_pairs = np.array([[remap[int(i)], remap[int(j)]] for i, j in pairs[sel]], int)
+        loc_sizes = sizes[members]
+        loc_counts = counts[np.ix_(members, members)]
 
-    f0 = estimate_focal(loc_pairs, Hs[sel], loc_sizes, cfg.focal_estimate_method)
-    tree = max_spanning_tree(loc_counts)
-    deg = np.bincount(loc_pairs.reshape(-1), minlength=n)
-    seed = int(np.argmax(deg))
-    pair_H = {(int(i), int(j)): Hs[sel[p]] for p, (i, j) in enumerate(loc_pairs)}
-    R0 = propagate_rotations(n, tree, pair_H, loc_sizes, f0, seed)
-    no_rotation, mean_ae, med_ae, max_ae = rotation_consistency(
-        loc_pairs, Hs[sel], loc_sizes, R0, f0
-    )
-    no_rotation = no_rotation or force_planar
-    cx = (loc_sizes[:, 1].astype(np.float32) - 1) / 2.0
-    cy = (loc_sizes[:, 0].astype(np.float32) - 1) / 2.0
+        f0 = estimate_focal(loc_pairs, Hs[sel], loc_sizes, cfg.focal_estimate_method)
+        tree = max_spanning_tree(loc_counts)
+        deg = np.bincount(loc_pairs.reshape(-1), minlength=n)
+        seed = int(np.argmax(deg))
+        pair_H = {(int(i), int(j)): Hs[sel[p]] for p, (i, j) in enumerate(loc_pairs)}
+        R0 = propagate_rotations(n, tree, pair_H, loc_sizes, f0, seed)
+        no_rotation, mean_ae, med_ae, max_ae = rotation_consistency(
+            loc_pairs, Hs[sel], loc_sizes, R0, f0
+        )
+        no_rotation = no_rotation or force_planar
+        cx = (loc_sizes[:, 1].astype(np.float32) - 1) / 2.0
+        cy = (loc_sizes[:, 0].astype(np.float32) - 1) / 2.0
 
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
-    result = {
-        "members": members, "pairs": loc_pairs, "pair_sel": sel, "focal_init": f0,
-        "seed": seed, "no_rotation": bool(no_rotation),
-        "rot_consistency_deg": (mean_ae, med_ae, max_ae),
-    }
-    if no_rotation:
-        result["cameras"] = Cameras(R=t(R0), f=t(np.full(n, f0)), cx=t(cx), cy=t(cy))
-        return result
+        result = {
+            "members": members, "pairs": loc_pairs, "pair_sel": sel, "focal_init": f0,
+            "seed": seed, "no_rotation": bool(no_rotation),
+            "rot_consistency_deg": (mean_ae, med_ae, max_ae),
+        }
+        if no_rotation:
+            result["cameras"] = Cameras(R=t(R0), f=t(np.full(n, f0)), cx=t(cx), cy=t(cy))
+            return result
 
-    P = len(sel)
-    M = min(cfg.max_matches, pair_mask.shape[1])
-    u_i = np.zeros((P, M, 2), np.float32)
-    u_j = np.zeros((P, M, 2), np.float32)
-    w = np.zeros((P, M), np.float32)
-    for k, p in enumerate(sel):
-        idxs = np.nonzero(pair_mask[p] & inliers[p])[0]
-        if len(idxs) > M:
-            rng = np.random.default_rng(1000003 * int(pairs[p, 0]) + int(pairs[p, 1]))
-            gi0 = int(pairs[p, 0])
-            pick = stratified_subsample(
-                xy[gi0, pair_idx[p, idxs, 0]], sizes[gi0], M, cfg.subsample_mode, rng,
-                grid_bins=cfg.subsample_grid_bins, polar_bins=cfg.subsample_polar_bins,
-            )
-            idxs = idxs[pick]
-        c = len(idxs)
-        gi, gj = int(pairs[p, 0]), int(pairs[p, 1])
-        u_i[k, :c] = xy[gi, pair_idx[p, idxs, 0]]
-        u_j[k, :c] = xy[gj, pair_idx[p, idxs, 1]]
-        w[k, :c] = 1.0
+        P = len(sel)
+        M = min(cfg.max_matches, pair_mask.shape[1])
+        u_i = np.zeros((P, M, 2), np.float32)
+        u_j = np.zeros((P, M, 2), np.float32)
+        w = np.zeros((P, M), np.float32)
+        for k, p in enumerate(sel):
+            idxs = np.nonzero(pair_mask[p] & inliers[p])[0]
+            if len(idxs) > M:
+                rng = np.random.default_rng(1000003 * int(pairs[p, 0]) + int(pairs[p, 1]))
+                gi0 = int(pairs[p, 0])
+                pick = stratified_subsample(
+                    xy[gi0, pair_idx[p, idxs, 0]], sizes[gi0], M, cfg.subsample_mode, rng,
+                    grid_bins=cfg.subsample_grid_bins, polar_bins=cfg.subsample_polar_bins,
+                )
+                idxs = idxs[pick]
+            c = len(idxs)
+            gi, gj = int(pairs[p, 0]), int(pairs[p, 1])
+            u_i[k, :c] = xy[gi, pair_idx[p, idxs, 0]]
+            u_j[k, :c] = xy[gj, pair_idx[p, idxs, 1]]
+            w[k, :c] = 1.0
 
-    order = incremental_order(loc_counts, np.arange(n), seed)
+        order = incremental_order(loc_counts, np.arange(n), seed)
     R_ba, f_ba, k1_ba, cost = run_incremental_ba(
         R0, np.full(n, f0, np.float32), cx, cy, u_i, u_j, w, loc_pairs, order, seed, cfg,
         with_k1=bool(cfg.estimate_distortion), device=device,

@@ -24,6 +24,7 @@ import torch
 
 from autopanostitch_tpu_torch.config import BundleConfig
 from autopanostitch_tpu_torch.models.planar import chain_to_anchor
+from autopanostitch_tpu_torch.utils import trace
 
 
 def params_to_H(p):
@@ -227,21 +228,27 @@ def run_bundle_adjustment_h(loc_pairs: np.ndarray, Hs: np.ndarray, pair_coords, 
     (u_i (P, M, 2), u_j (P, M, 2), w (P, M)) inlier coordinates (numpy).
     Returns dict(H_abs (n, 3, 3) refined, image -> anchor frame; H_init;
     reachable; anchor; final_cost)."""
-    H_abs, reachable, anchor = chain_to_anchor(loc_pairs, Hs, n, anchor)
-    u_i, u_j, w = pair_coords
-    loc_pairs = np.asarray(loc_pairs).reshape(-1, 2)
-    pv = reachable[loc_pairs[:, 0]] & reachable[loc_pairs[:, 1]]
+    with trace.span("ba_h.chain"):
+        H_abs, reachable, anchor = chain_to_anchor(loc_pairs, Hs, n, anchor)
+        u_i, u_j, w = pair_coords
+        loc_pairs = np.asarray(loc_pairs).reshape(-1, 2)
+        pv = reachable[loc_pairs[:, 0]] & reachable[loc_pairs[:, 1]]
+        flat = H_abs.reshape(n, 9)
+        params0 = (flat[:, :8] / flat[:, 8:9]).astype(np.float32)
 
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
-    flat = H_abs.reshape(n, 9)
-    params0 = (flat[:, :8] / flat[:, 8:9]).astype(np.float32)
-    params, cost = bundle_adjust_h(
-        t(params0), t(loc_pairs, torch.long), t(u_i), t(u_j), t(w), t(pv, torch.bool),
-        int(anchor), cfg=cfg, iters=cfg.max_iter_lm, bidir=not cfg.h_one_direction,
-    )
-    params = params.cpu().numpy()
+    with trace.span("ba_h.upload"):
+        inputs = (t(params0), t(loc_pairs, torch.long), t(u_i), t(u_j), t(w), t(pv, torch.bool))
+    with trace.span("ba_h.lm"):
+        params, cost = bundle_adjust_h(*inputs, int(anchor), cfg=cfg, iters=cfg.max_iter_lm,
+                                       bidir=not cfg.h_one_direction)
+    trace.count("ba.phases")
+    trace.count("ba.lm_iterations", cfg.max_iter_lm)
+    with trace.span("ba_h.readback"):
+        params = params.cpu().numpy()
+        cost = float(cost)
     H_ref = np.concatenate([params, np.ones((n, 1), np.float32)], -1).reshape(n, 3, 3)
     return {"H_abs": H_ref, "H_init": H_abs, "reachable": reachable, "anchor": anchor,
-            "final_cost": float(cost)}
+            "final_cost": cost}

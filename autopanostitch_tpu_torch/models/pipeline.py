@@ -38,7 +38,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-import time
 from typing import Dict, List
 
 import numpy as np
@@ -61,7 +60,7 @@ from autopanostitch_tpu_torch.ops import ransac as rs
 from autopanostitch_tpu_torch.ops import sampling as samp_ops
 from autopanostitch_tpu_torch.ops.sift import SiftFeatures
 from autopanostitch_tpu_torch.parallel import sharded
-from autopanostitch_tpu_torch.utils import image_io
+from autopanostitch_tpu_torch.utils import image_io, trace
 from autopanostitch_tpu_torch.utils.cache import StageCache, fingerprint
 from autopanostitch_tpu_torch.utils.image_io import ImageSet
 
@@ -89,20 +88,26 @@ class StitchResult:
 
 
 class StageTimer:
-    """Wall time per named stage; each stage ends with a device synchronize
-    so the time covers the work the stage queued."""
+    """Seconds per named stage, read from the tracer's stage spans
+    (`utils/trace.stage`). On a CUDA device a stage's seconds are the
+    stream time between CUDA events recorded where the host enters and
+    leaves it, so the timer adds no synchronize and the stitch overlaps as
+    it does untimed; they are resolved when read, after the caller's own
+    sync at the end of the stitch. Without a device, host seconds."""
 
     def __init__(self, device=None):
         self.device = None if device is None else torch.device(device)
-        self.durations: List[tuple] = []
+        self.spans: List[trace.Span] = []
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        t0 = time.perf_counter()
-        yield
-        if self.device is not None:
-            device_mod.synchronize(self.device)
-        self.durations.append((name, time.perf_counter() - t0))
+        with trace.stage(name, self.device) as sp:
+            yield
+        self.spans.append(sp)
+
+    @property
+    def durations(self) -> List[tuple]:
+        return [(sp.name, sp.seconds()) for sp in self.spans]
 
     def report(self) -> Dict[str, float]:
         out: Dict[str, float] = {}
@@ -112,7 +117,7 @@ class StageTimer:
 
 
 def _stage(timer, name: str):
-    return timer.stage(name) if timer is not None else contextlib.nullcontext()
+    return timer.stage(name) if timer is not None else trace.span(name)
 
 
 def derived_generator(device, seed: int, tag: int) -> torch.Generator:
@@ -139,11 +144,12 @@ def _all_pairs_graph(desc, mask, cfg: StitchConfig, ratio: float):
     """Pairwise-match every i < j image pair on B1's pair mode. Returns
     (pairs, pair_idx, pair_mask, counts (P,)) numpy."""
     threshold, binary = _matcher_semantics(cfg)
-    pairs, idx, m, n = mt.match_all_pairs(desc, mask, ratio=ratio,
-                                          max_matches=cfg.matching.max_matches_per_pair,
-                                          threshold=threshold, binary=binary,
-                                          compute_dtype=cfg.tpu.compute_dtype)
-    return pairs, idx.cpu().numpy(), m.cpu().numpy(), n.cpu().numpy()
+    with trace.span("matching.knn"):
+        pairs, idx, m, n = mt.match_all_pairs(desc, mask, ratio=ratio,
+                                              max_matches=cfg.matching.max_matches_per_pair,
+                                              threshold=threshold, binary=binary,
+                                              compute_dtype=cfg.tpu.compute_dtype)
+        return pairs, idx.cpu().numpy(), m.cpu().numpy(), n.cpu().numpy()
 
 
 def match_features(feats: SiftFeatures, cfg: StitchConfig, mesh=None):
@@ -164,26 +170,29 @@ def match_features(feats: SiftFeatures, cfg: StitchConfig, mesh=None):
         keep = n > 0
         return pairs[keep], idx[keep], m[keep], counts, counts
     binary = _matcher_semantics(cfg)[1]
-    if mesh is None:
-        nn_idx, nn_dist, best, accepted = mt.global_match_stack(
-            feats.desc, feats.mask, k=cfg.matching.k, method=cfg.matching.method,
-            ratio=cfg.matching.ratio_threshold, binary=binary,
-            compute_dtype=cfg.tpu.compute_dtype, block=cfg.tpu.match_block,
-        )
-    else:
-        ids = torch.arange(N, dtype=torch.int32, device=feats.desc.device).repeat_interleave(K)
-        nn_idx, nn_dist = sharded.sharded_global_knn(
-            feats.desc.reshape(N * K, D), feats.mask.reshape(N * K), ids, mesh, k=cfg.matching.k)
-        best, accepted = mt.global_ratio_test(nn_idx, nn_dist, ratio=cfg.matching.ratio_threshold,
-                                              binary=binary)
     F = N * K
+    with trace.span("matching.knn"):
+        if mesh is None:
+            nn_idx, nn_dist, best, accepted = mt.global_match_stack(
+                feats.desc, feats.mask, k=cfg.matching.k, method=cfg.matching.method,
+                ratio=cfg.matching.ratio_threshold, binary=binary,
+                compute_dtype=cfg.tpu.compute_dtype, block=cfg.tpu.match_block,
+            )
+        else:
+            ids = torch.arange(N, dtype=torch.int32, device=feats.desc.device).repeat_interleave(K)
+            nn_idx, nn_dist = sharded.sharded_global_knn(
+                feats.desc.reshape(N * K, D), feats.mask.reshape(N * K), ids, mesh,
+                k=cfg.matching.k)
+            best, accepted = mt.global_ratio_test(nn_idx, nn_dist,
+                                                  ratio=cfg.matching.ratio_threshold,
+                                                  binary=binary)
+        best_h = np.clip(best.cpu().numpy(), 0, max(F - 1, 0))
+        accepted_h = accepted.cpu().numpy()
     image_id = np.repeat(np.arange(N, dtype=np.int32), K)
     local_idx = np.tile(np.arange(K, dtype=np.int32), N)
-    best_h = np.clip(best.cpu().numpy(), 0, max(F - 1, 0))
-    out = mt.global_matches_to_pairs(
-        best_h, accepted.cpu().numpy(), image_id, local_idx, N,
-        cfg.matching.max_matches_per_pair,
-    )
+    with trace.span("matching.select"):
+        out = mt.global_matches_to_pairs(best_h, accepted_h, image_id, local_idx, N,
+                                         cfg.matching.max_matches_per_pair)
     memo = {}
 
     def votes_fn():
@@ -416,14 +425,16 @@ def _check_supported(cfg: StitchConfig, dev: torch.device) -> None:
 
 
 def _upload(stack, dev):
-    images = torch.as_tensor(np.asarray(stack)).to(dev)
-    return images.float() / 255.0 if images.dtype == torch.uint8 else images
+    with trace.span("upload"):
+        images = torch.as_tensor(np.asarray(stack)).to(dev)
+        return images.float() / 255.0 if images.dtype == torch.uint8 else images
 
 
 def _feathers(sizes, images):
-    return samp_ops.feather_stack(
-        torch.as_tensor(np.asarray(sizes), dtype=torch.int32, device=images.device),
-        images.shape[1], images.shape[2])
+    with trace.span("upload"):
+        return samp_ops.feather_stack(
+            torch.as_tensor(np.asarray(sizes), dtype=torch.int32, device=images.device),
+            images.shape[1], images.shape[2])
 
 
 def stitch(image_set: ImageSet, cfg: StitchConfig = StitchConfig(), seed: int = 0,
@@ -434,7 +445,14 @@ def stitch(image_set: ImageSet, cfg: StitchConfig = StitchConfig(), seed: int = 
     `cache_dir`, the features, the post-rescue graph and each component's
     bundle adjustment are resumed from (or saved to) npz files there under
     the reference's fingerprints of the image names, sizes, the config
-    sections each stage reads and the seed."""
+    sections each stage reads and the seed. The stitch is the root span of
+    the tracer (`utils/trace.py`), recorded where something subscribed."""
+    with trace.stitch(image_set.names, image_set.sizes):
+        return _stitch(image_set, cfg, seed, device, timer, cache_dir)
+
+
+def _stitch(image_set: ImageSet, cfg: StitchConfig, seed: int, device, timer,
+            cache_dir) -> StitchResult:
     _check_supported(cfg, torch.device(device))
     dev = device_mod.resolve(device)
     gen = torch.Generator(device=dev)
@@ -471,11 +489,13 @@ def stitch(image_set: ImageSet, cfg: StitchConfig = StitchConfig(), seed: int = 
         with _stage(timer, "matching"):
             pairs, pair_idx, pair_mask, counts, votes = match_features(feats, cfg)
             if len(pairs):
-                pairs, pair_idx, pair_mask = select_candidate_pairs(
-                    pairs, pair_idx, pair_mask, counts, cfg.image_match.m_brown_lowe)
+                with trace.span("matching.select"):
+                    pairs, pair_idx, pair_mask = select_candidate_pairs(
+                        pairs, pair_idx, pair_mask, counts, cfg.image_match.m_brown_lowe)
         with _stage(timer, "ransac"):
             graph = verify_matches(feats, pairs, pair_idx, pair_mask, counts, cfg, gen)
-    comps = connected_components(n, graph.pairs, graph.accepted)
+    with trace.span("components"):
+        comps = connected_components(n, graph.pairs, graph.accepted)
     rescue_adopted = False
     if fresh_graph:
         with _stage(timer, "pairwise_rescue"):
@@ -513,7 +533,9 @@ def stitch_components(image_set: ImageSet, graph: MatchGraph, comps: np.ndarray,
                 with _stage(timer, "second_pass"):
                     sp = second_pass_component(image_set, members, cfg,
                                                derived_generator(dev, seed, 2), dev)
+                    trace.count("second_pass.runs", int(sp is not None))
                 if sp is not None and np.asarray(sp[3].accepted).any():
+                    trace.count("second_pass.adopted")
                     comp_set, comp_images, comp_feats, comp_graph = sp
                     result = stitch_component(
                         comp_set, comp_graph, comp_feats, np.arange(len(members)), cfg,
@@ -524,6 +546,8 @@ def stitch_components(image_set: ImageSet, graph: MatchGraph, comps: np.ndarray,
                 with _stage(timer, "second_pass"):
                     comp_graph = second_pass_matching(feats, members, graph, cfg,
                                                       derived_generator(dev, seed, 1))
+                    trace.count("second_pass.runs")
+                    trace.count("second_pass.adopted")
                 result = stitch_component(image_set, comp_graph, feats, members, cfg, images,
                                           feathers, timer=timer, mesh=mesh)
         if result is None:
@@ -545,35 +569,40 @@ def second_pass_component(image_set: ImageSet, members: np.ndarray, cfg: StitchC
     re-resize reproduces the first-pass sizes."""
     if image_set.originals is None and image_set.paths is None:
         return None
-    orig = [image_set.original(int(k)) for k in members]
-    if any(o is None for o in orig):
-        return None
     if cfg.render.resize_image:
         limits = (cfg.render.height_limit, cfg.render.width_limit)
     else:
         limits = (1 << 30, 1 << 30)
-    imgs = [image_io.resize_fit(o, *limits) for o in orig]
-    sizes = np.array([im.shape[:2] for im in imgs], np.int32)
-    if np.array_equal(sizes, image_set.sizes[members]):
-        return None
-    H = int(np.ceil(sizes[:, 0].max() / 32) * 32)
-    W = int(np.ceil(sizes[:, 1].max() / 32) * 32)
-    stack = np.stack([image_io._pad_to(im, H, W) for im in imgs])
+    with trace.span("second_pass.resize"):
+        orig = [image_set.original(int(k)) for k in members]
+        if any(o is None for o in orig):
+            return None
+        imgs = [image_io.resize_fit(o, *limits) for o in orig]
+        sizes = np.array([im.shape[:2] for im in imgs], np.int32)
+        if np.array_equal(sizes, image_set.sizes[members]):
+            return None
+        H = int(np.ceil(sizes[:, 0].max() / 32) * 32)
+        W = int(np.ceil(sizes[:, 1].max() / 32) * 32)
+        stack = np.stack([image_io._pad_to(im, H, W) for im in imgs])
     comp_set = ImageSet(images=stack, sizes=sizes,
                         names=[image_set.names[int(k)] for k in members])
-    images = _upload(stack, device)
-    feats = features_stage.extract_features(images, sizes, cfg.detector)
+    with trace.span("second_pass.upload"):
+        images = _upload(stack, device)
+    with trace.span("second_pass.features"):
+        feats = features_stage.extract_features(images, sizes, cfg.detector)
     nc = len(members)
-    pairs_l, idx, m, nm = _all_pairs_graph(feats.desc, feats.mask, cfg,
-                                           cfg.matching.ratio_threshold)
-    keep = nm >= 4
-    counts = np.zeros((nc, nc), np.int32)
-    for p in np.nonzero(keep)[0]:
-        i, j = pairs_l[p]
-        counts[i, j] = counts[j, i] = int(nm[p])
-    sub_pairs, sub_idx, sub_mask = select_candidate_pairs(
-        pairs_l[keep], idx[keep], m[keep], counts, cfg.image_match.m_brown_lowe)
-    comp_graph = verify_matches(feats, sub_pairs, sub_idx, sub_mask, counts, cfg, generator)
+    with trace.span("second_pass.matching"):
+        pairs_l, idx, m, nm = _all_pairs_graph(feats.desc, feats.mask, cfg,
+                                               cfg.matching.ratio_threshold)
+        keep = nm >= 4
+        counts = np.zeros((nc, nc), np.int32)
+        for p in np.nonzero(keep)[0]:
+            i, j = pairs_l[p]
+            counts[i, j] = counts[j, i] = int(nm[p])
+        sub_pairs, sub_idx, sub_mask = select_candidate_pairs(
+            pairs_l[keep], idx[keep], m[keep], counts, cfg.image_match.m_brown_lowe)
+    with trace.span("second_pass.ransac"):
+        comp_graph = verify_matches(feats, sub_pairs, sub_idx, sub_mask, counts, cfg, generator)
     return comp_set, images, feats, comp_graph
 
 
@@ -583,16 +612,18 @@ def second_pass_matching(feats: SiftFeatures, members: np.ndarray, graph: MatchG
     on its first-pass features (B1's pair mode) and re-verify. Returns a
     MatchGraph in global image indices restricted to the member pairs."""
     mem_d = torch.as_tensor(members, device=feats.desc.device)
-    pairs_l, idx, m, n = _all_pairs_graph(feats.desc[mem_d], feats.mask[mem_d], cfg,
-                                          cfg.matching.ratio_threshold)
-    keep = n >= 4
-    pairs_g = members[pairs_l[keep]]
-    counts = graph.counts.copy()
-    for p, (i, j) in enumerate(pairs_g):
-        counts[i, j] = counts[j, i] = int(n[keep][p])
-    sub_pairs, sub_idx, sub_mask = select_candidate_pairs(
-        pairs_g, idx[keep], m[keep], counts, cfg.image_match.m_brown_lowe)
-    return verify_matches(feats, sub_pairs, sub_idx, sub_mask, counts, cfg, generator)
+    with trace.span("second_pass.matching"):
+        pairs_l, idx, m, n = _all_pairs_graph(feats.desc[mem_d], feats.mask[mem_d], cfg,
+                                              cfg.matching.ratio_threshold)
+        keep = n >= 4
+        pairs_g = members[pairs_l[keep]]
+        counts = graph.counts.copy()
+        for p, (i, j) in enumerate(pairs_g):
+            counts[i, j] = counts[j, i] = int(n[keep][p])
+        sub_pairs, sub_idx, sub_mask = select_candidate_pairs(
+            pairs_g, idx[keep], m[keep], counts, cfg.image_match.m_brown_lowe)
+    with trace.span("second_pass.ransac"):
+        return verify_matches(feats, sub_pairs, sub_idx, sub_mask, counts, cfg, generator)
 
 
 def _planar_pair_coords(graph: MatchGraph, keep, xy, sizes_all, cfg: StitchConfig):
@@ -687,10 +718,11 @@ def stitch_component(image_set: ImageSet, graph: MatchGraph, feats: SiftFeatures
                 if acc[p] and int(graph.pairs[p, 0]) in remap and int(graph.pairs[p, 1]) in remap]
         loc_pairs = np.array([[remap[int(i)], remap[int(j)]] for i, j in graph.pairs[keep]], int)
         with _stage(timer, "bundle_adjustment_h"):
+            with trace.span("ba_h.coords"):
+                coords = _planar_pair_coords(graph, keep, feats.xy.cpu().numpy(),
+                                             image_set.sizes, cfg)
             hba = bundle_h_stage.run_bundle_adjustment_h(
-                loc_pairs, graph.H[keep],
-                _planar_pair_coords(graph, keep, feats.xy.cpu().numpy(), image_set.sizes, cfg),
-                len(members), cfg.bundle, device=dev)
+                loc_pairs, graph.H[keep], coords, len(members), cfg.bundle, device=dev)
         with _stage(timer, "render"):
             planar = planar_stage.composite_from_abs(
                 images_m, feathers_m, sizes, hba["H_abs"], hba["reachable"],
@@ -704,26 +736,28 @@ def stitch_component(image_set: ImageSet, graph: MatchGraph, feats: SiftFeatures
         result["anchor"] = hba["anchor"]
         result["projections"] = {"planar": planar["panorama"]}
         result["coverage_by_mode"] = {"planar": planar["coverage"]}
-        _apply_crop(result, cfg)
+        with trace.span("crop"):
+            _apply_crop(result, cfg)
         if cfg.post.show_panorama_imgs_nums:
-            boxes, centers = annotate_stage.warped_boxes_planar(
-                hba["H_abs"], sizes, planar["offset"], planar["scale"])
-            result["projections_annotated"] = {
-                "planar": annotate_stage.draw_annotations(planar["panorama"], boxes, centers)}
+            with trace.span("annotate"):
+                boxes, centers = annotate_stage.warped_boxes_planar(
+                    hba["H_abs"], sizes, planar["offset"], planar["scale"])
+                result["projections_annotated"] = {
+                    "planar": annotate_stage.draw_annotations(planar["panorama"], boxes, centers)}
         return result
 
-    cams = ba["cameras"]
-    R = cams.R.cpu().numpy()
-    f = cams.f.cpu().numpy()
-    K = np.zeros((len(f), 3, 3), np.float32)
-    K[:, 0, 0] = f
-    K[:, 1, 1] = f
-    K[:, 0, 2] = cams.cx.cpu().numpy()
-    K[:, 1, 2] = cams.cy.cpu().numpy()
-    K[:, 2, 2] = 1.0
-    k1 = None if cams.k1 is None else cams.k1.cpu().numpy().astype(np.float32)
-
-    R, straightened, _ = straighten_stage.straighten_rotations(R, cfg.straighten)
+    with trace.span("straighten"):  # the cameras read back, then straightened
+        cams = ba["cameras"]
+        R = cams.R.cpu().numpy()
+        f = cams.f.cpu().numpy()
+        K = np.zeros((len(f), 3, 3), np.float32)
+        K[:, 0, 0] = f
+        K[:, 1, 1] = f
+        K[:, 0, 2] = cams.cx.cpu().numpy()
+        K[:, 1, 2] = cams.cy.cpu().numpy()
+        K[:, 2, 2] = 1.0
+        k1 = None if cams.k1 is None else cams.k1.cpu().numpy().astype(np.float32)
+        R, straightened, _ = straighten_stage.straighten_rotations(R, cfg.straighten)
     result["straightened"] = straightened
     result["R_render"] = R
 
@@ -740,7 +774,9 @@ def stitch_component(image_set: ImageSet, graph: MatchGraph, feats: SiftFeatures
     if blend_mode == "none":
         blend_mode = f"none-{cfg.blend.compose_none_policy}"
     for mode in cfg.render.projections:
-        canvas = render_stage.compute_canvas(R, K, sizes, mode, cfg.render, k1=k1, device=dev)
+        with trace.span("canvas"):
+            canvas = render_stage.compute_canvas(R, K, sizes, mode, cfg.render, k1=k1,
+                                                 device=dev)
         render = render_stage.render_rotational if mesh is None else functools.partial(
             sharded.sharded_render_tiles, mesh=mesh)
         with _stage(timer, "render"):
@@ -758,14 +794,16 @@ def stitch_component(image_set: ImageSet, graph: MatchGraph, feats: SiftFeatures
     result["projections"] = projections
     result["panorama"] = next(iter(projections.values()))
     result["coverage"] = result["coverage_by_mode"][cfg.render.projections[0]]
-    _apply_crop(result, cfg)
+    with trace.span("crop"):
+        _apply_crop(result, cfg)
     if cfg.post.show_panorama_imgs_nums:
-        annotated = {}
-        for mode, pano_img in projections.items():
-            boxes, centers = annotate_stage.warped_boxes_rotational(
-                result["canvas"][mode], R, K, sizes, k1=k1)
-            annotated[mode] = annotate_stage.draw_annotations(pano_img, boxes, centers)
-        result["projections_annotated"] = annotated
+        with trace.span("annotate"):
+            annotated = {}
+            for mode, pano_img in projections.items():
+                boxes, centers = annotate_stage.warped_boxes_rotational(
+                    result["canvas"][mode], R, K, sizes, k1=k1)
+                annotated[mode] = annotate_stage.draw_annotations(pano_img, boxes, centers)
+            result["projections_annotated"] = annotated
     return result
 
 

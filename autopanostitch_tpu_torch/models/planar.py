@@ -17,6 +17,7 @@ import torch
 from autopanostitch_tpu_torch.config import GainConfig
 from autopanostitch_tpu_torch.ops import blend as blend_ops
 from autopanostitch_tpu_torch.ops import sampling as samp
+from autopanostitch_tpu_torch.utils import trace
 
 
 def chain_to_anchor(pairs: np.ndarray, Hs: np.ndarray, n: int, anchor: int | None = None):
@@ -157,11 +158,13 @@ def composite_from_abs(images, feathers, sizes: np.ndarray, H_abs: np.ndarray,
     pano = np.zeros((Hc, Wc, 3), np.uint8)
     cover = np.zeros((Hc, Wc), bool)
     for r0 in range(0, Hc, band_h):
-        band, cov = composite_band(images, feathers, Hi_d, ok_d, g_d, band_h, Wc, x0s,
-                                   y0s + float(r0), blend_mode, bands, interp)
-        h = min(band_h, Hc - r0)
-        pano[r0 : r0 + h] = band[:h].cpu().numpy()
-        cover[r0 : r0 + h] = cov[:h].cpu().numpy()
+        with trace.span("render.band"):
+            band, cov = composite_band(images, feathers, Hi_d, ok_d, g_d, band_h, Wc, x0s,
+                                       y0s + float(r0), blend_mode, bands, interp)
+            h = min(band_h, Hc - r0)
+            pano[r0 : r0 + h] = band[:h].cpu().numpy()
+            cover[r0 : r0 + h] = cov[:h].cpu().numpy()
+            trace.count("render.bands")
     return {"panorama": pano, "coverage": cover, "offset": (x0s, y0s), "scale": scale,
             "gains": gains}
 

@@ -31,6 +31,7 @@ from autopanostitch_tpu_torch.ops import blend as blend_ops
 from autopanostitch_tpu_torch.ops import geometry as geo
 from autopanostitch_tpu_torch.ops import projections as proj
 from autopanostitch_tpu_torch.ops import sampling as samp
+from autopanostitch_tpu_torch.utils import trace
 
 
 def _bounds_per_camera(R, K, sizes, mode: str, R_ref, uv_abs_cap: float, k1=None,
@@ -274,12 +275,14 @@ def render_rotational(images, feathers, R, K, canvas: dict, gains=None,
     if sizes is None:
         sizes = np.tile(np.array(images.shape[1:3], np.int32), (n, 1))
     C_arg = None if max_contributors is None else min(max_contributors, n)
-    sel, sel_ok, origins = tile_contributors(canvas, R, K, sizes, (th, tw), C_arg, k1=k1,
-                                             device=dev)
+    with trace.span("render.contributors"):
+        sel, sel_ok, origins = tile_contributors(canvas, R, K, sizes, (th, tw), C_arg, k1=k1,
+                                                 device=dev)
     tiles, covs = render_tile_list(images, feathers, R, K, gains, k1, sel, sel_ok, origins, canvas,
                                    tile, blend_mode, bands, angle_power, interp, tiles_per_batch)
-    pano, cover = assemble_tiles(tiles, covs, origins, canvas["Hc"], canvas["Wc"])
-    return pano.cpu().numpy(), cover.cpu().numpy()
+    with trace.span("render.assemble"):
+        pano, cover = assemble_tiles(tiles, covs, origins, canvas["Hc"], canvas["Wc"])
+        return pano.cpu().numpy(), cover.cpu().numpy()
 
 
 def _tiles_per_launch(T: int, C: int, tile: tuple, blend_mode: str, device) -> int:
@@ -309,8 +312,9 @@ def render_tile_list(images, feathers, R, K, gains, k1, sel, sel_ok, origins, ca
     T, C = sel.shape
     if T and (sel.min() < 0 or sel.max() >= images.shape[0]):
         raise ValueError("render_tile_list: a tile names an image outside the stack")
-    images4 = torch.cat([images, feathers[..., None]], dim=-1)
-    fine4 = samp.upsample2x_cubic(images4) if interp == "bicubic2x" else None
+    with trace.span("render.upsample"):
+        images4 = torch.cat([images, feathers[..., None]], dim=-1)
+        fine4 = samp.upsample2x_cubic(images4) if interp == "bicubic2x" else None
     R_d, K_d, g_d = _t(R, dev), _t(K, dev), _t(gains, dev)
     k1_d = None if k1 is None else _t(k1, dev)
     sel_d, ok_d, org_d = _t(sel, dev, torch.int32), _t(sel_ok, dev, torch.bool), _t(origins, dev)
@@ -318,11 +322,14 @@ def render_tile_list(images, feathers, R, K, gains, k1, sel, sel_ok, origins, ca
     tiles, covs = [], []
     for s in range(0, T, tb):
         e = s + tb
-        out = render_kernels.render_sample(
-            images4, fine4, R_d, K_d, g_d, k1_d, sel_d[s:e], ok_d[s:e], org_d[s:e], canvas, th, tw,
-            blend_mode, angle_power, interp)
-        if blend_mode == "multiband":
-            out = blend_ops.multiband_blend(*out, bands=bands, to_u8=True)
+        with trace.span("render.batch"):
+            out = render_kernels.render_sample(
+                images4, fine4, R_d, K_d, g_d, k1_d, sel_d[s:e], ok_d[s:e], org_d[s:e], canvas,
+                th, tw, blend_mode, angle_power, interp)
+            if blend_mode == "multiband":
+                out = blend_ops.multiband_blend(*out, bands=bands, to_u8=True)
+            trace.count("render.tile_batches")
+            trace.count("render.tiles", min(e, T) - s)
         tiles.append(out[0])
         covs.append(out[1])
     if not tiles:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from autopanostitch_tpu_torch.ops import geometry as geo
+from autopanostitch_tpu_torch.utils import trace
 
 # (minimal-case fitter, weighted refit fitter, minimal point count)
 _MODEL_FITTERS = {
@@ -262,9 +263,10 @@ def verify_pairs(pair_src, pair_dst, pair_mask, threshold: float = 5.5,
     small_min = float("inf") if accept_small_min is None else accept_small_min
     if total is None:
         total = batch
-    src = torch.as_tensor(np.asarray(pair_src, np.float32), device=device)
-    dst = torch.as_tensor(np.asarray(pair_dst, np.float32), device=device)
-    msk = torch.as_tensor(np.asarray(pair_mask, bool), device=device)
+    with trace.span("ransac.upload"):
+        src = torch.as_tensor(np.asarray(pair_src, np.float32), device=device)
+        dst = torch.as_tensor(np.asarray(pair_dst, np.float32), device=device)
+        msk = torch.as_tensor(np.asarray(pair_mask, bool), device=device)
 
     def run(sel, sub, tot, sets, init=None):
         """ransac_fit over the pairs `sel` (an index array or None = all) in
@@ -289,37 +291,48 @@ def verify_pairs(pair_src, pair_dst, pair_mask, threshold: float = 5.5,
             "m_matches": int(M), "trials_spent": float(P * total),
         }
         if minimal_sets is None:
-            minimal_sets = draw_minimal_sets(pair_mask, model, batch, total, generator, src.device)
-        res = run(None, min(batch, total), total, minimal_sets)
+            with trace.span("ransac.draw"):
+                minimal_sets = draw_minimal_sets(pair_mask, model, batch, total, generator,
+                                                 src.device)
+        with trace.span("ransac.phase_a"):
+            res = run(None, min(batch, total), total, minimal_sets)
     else:
         first = int(adaptive_first)
-        res = run(None, first, first, None if minimal_sets is None else minimal_sets[:, :1])
-        ni = res["num_inliers"].cpu().numpy()
-        w = ni / np.maximum(res["num_putative"].cpu().numpy(), 1)
-        cont = np.nonzero(num_trials_observed(confidence, model, w, total) > first)[0]
+        with trace.span("ransac.phase_a"):
+            res = run(None, first, first, None if minimal_sets is None else minimal_sets[:, :1])
+            ni = res["num_inliers"].cpu().numpy()
+            w = ni / np.maximum(res["num_putative"].cpu().numpy(), 1)
+            cont = np.nonzero(num_trials_observed(confidence, model, w, total) > first)[0]
         verify_pairs.last_stats = {
             "n_pairs": int(P), "total": int(total), "first": first,
             "n_continued": int(len(cont)), "m_matches": int(M),
             "trials_spent": float(P * first + len(cont) * (total - first)),
         }
         if len(cont):
-            ci = torch.as_tensor(cont, device=src.device)
-            out_b = run(ci, first, total - first,
-                        None if minimal_sets is None else minimal_sets[torch.as_tensor(cont), 1:],
-                        init=(res["raw_cost"][ci], res["raw_H"][ci], res["raw_inliers"][ci]))
-            for k in res:
-                res[k][ci] = out_b[k]
+            with trace.span("ransac.phase_b"):
+                ci = torch.as_tensor(cont, device=src.device)
+                out_b = run(ci, first, total - first,
+                            None if minimal_sets is None
+                            else minimal_sets[torch.as_tensor(cont), 1:],
+                            init=(res["raw_cost"][ci], res["raw_H"][ci], res["raw_inliers"][ci]))
+                for k in res:
+                    res[k][ci] = out_b[k]
     ni = res["num_inliers"].float()
     nf = res["num_putative"].float()
     accepted = res["success"] & (
         (ni > accept_alpha + accept_beta * nf)
         | ((ni >= small_min) & (ni >= accept_small_ratio * nf))
     )
-    return {
-        "H": res["H"].cpu().numpy(),
-        "H_inv": geo.homography_inverse(res["H"]).cpu().numpy(),
-        "inliers": res["inliers"].cpu().numpy(),
-        "num_inliers": res["num_inliers"].to(torch.int32).cpu().numpy(),
-        "num_putative": res["num_putative"].to(torch.int32).cpu().numpy(),
-        "accepted": accepted.cpu().numpy(),
-    }
+    with trace.span("ransac.readback"):
+        out = {
+            "H": res["H"].cpu().numpy(),
+            "H_inv": geo.homography_inverse(res["H"]).cpu().numpy(),
+            "inliers": res["inliers"].cpu().numpy(),
+            "num_inliers": res["num_inliers"].to(torch.int32).cpu().numpy(),
+            "num_putative": res["num_putative"].to(torch.int32).cpu().numpy(),
+            "accepted": accepted.cpu().numpy(),
+        }
+    trace.count("ransac.pairs", int(P))
+    trace.count("ransac.accepted", int(out["accepted"].sum()))
+    trace.count("ransac.trials", verify_pairs.last_stats["trials_spent"])
+    return out

@@ -27,6 +27,7 @@ from autopanostitch_tpu_torch.config import StitchConfig
 from autopanostitch_tpu_torch.models import features as features_stage
 from autopanostitch_tpu_torch.models import pipeline as pl
 from autopanostitch_tpu_torch.parallel import mesh as pmesh
+from autopanostitch_tpu_torch.utils import trace
 from autopanostitch_tpu_torch.utils.image_io import ImageSet
 
 
@@ -40,11 +41,18 @@ def stitch_multichip(image_set: ImageSet, cfg: StitchConfig = StitchConfig(), me
     pooled matcher always, exhaustive in float32, whatever
     `matching.match_pairwise`, `method` and `tpu.compute_dtype` say; RANSAC
     with a fixed budget (no `adaptive_first_batch`), as the reference's
-    multi-chip path. `timer` a `pipeline.StageTimer` or None."""
+    multi-chip path. `timer` a `pipeline.StageTimer` or None. The stitch is
+    the tracer's root span (`utils/trace.py`), tagged with this rank."""
     if cfg.detector.detector.upper() not in features_stage.SHARDED_DETECTORS:
         raise ValueError("stitch_multichip shards the SIFT extractor; detector="
                          f"{cfg.detector.detector!r} runs through pipeline.stitch")
     mesh = mesh if mesh is not None else pmesh.make_mesh()
+    with trace.stitch(image_set.names, image_set.sizes, rank=mesh.rank):
+        return _stitch_multichip(image_set, cfg, mesh, seed, timer)
+
+
+def _stitch_multichip(image_set: ImageSet, cfg: StitchConfig, mesh, seed: int,
+                      timer) -> pl.StitchResult:
     dev = mesh.device
     pl._check_supported(cfg, dev)
     gen = torch.Generator(device=dev)
@@ -61,7 +69,8 @@ def stitch_multichip(image_set: ImageSet, cfg: StitchConfig = StitchConfig(), me
                 pairs, pair_idx, pair_mask, counts, cfg.image_match.m_brown_lowe)
     with pl._stage(timer, "ransac"):
         graph = pl.verify_matches(feats, pairs, pair_idx, pair_mask, counts, cfg, gen, mesh=mesh)
-    comps = pl.connected_components(n, graph.pairs, graph.accepted)
+    with trace.span("components"):
+        comps = pl.connected_components(n, graph.pairs, graph.accepted)
     # the rescue runs whole on every rank: it fires only on a suspicious
     # split, and the ranks must keep identical graphs
     with pl._stage(timer, "pairwise_rescue"):

@@ -4,15 +4,17 @@
 - `Tee`: stdout duplicated to a log file (the reference's `diary log.txt`).
 - `device_profile`: a `torch.profiler` trace of the block (CPU and, on a
   card, CUDA activity) written as a Chrome trace, where the reference takes
-  a `jax.profiler` trace.
+  a `jax.profiler` trace, and the tracer's table of the stitches in it
+  (`utils/trace.py`).
 - `report_device_memory`: the card's memory in use, the peak since the
   process began (or the last reset) and its capacity.
 - `graph_ms`, `launch_floor_ms`: a call's device time from a CUDA graph of
   back-to-back calls, and an empty kernel's (the launch floor), for
   `chip_smoke.py` and `tools/ba_probe.py`.
 
-The per-stage timer is `models/pipeline.StageTimer`, which ends each stage
-with a device synchronize.
+The per-stage timer is `models/pipeline.StageTimer`, on the tracer's stage
+spans: on a card a stage's seconds are the stream time between CUDA events
+recorded where it starts and ends, so it adds no synchronize.
 """
 
 from __future__ import annotations
@@ -22,15 +24,22 @@ import os
 import sys
 from typing import Dict, Optional, TextIO
 
+import numpy as np
 import torch
 
 TRACE_FILE = "trace.json"
+SPANS_FILE = "spans.txt"
 
 
 @contextlib.contextmanager
 def device_profile(trace_dir: Optional[str]):
     """Capture a `torch.profiler` trace of the block into
-    trace_dir/trace.json (view with Perfetto or chrome://tracing). No-op
+    trace_dir/trace.json (view with Perfetto or chrome://tracing; the
+    tracer's spans show as `apst:` ranges), and print the tracer's table of
+    the stitches in the block (`trace.summary`: each span's count, total,
+    self time and, on a card, the device's idle time and the host's waits
+    for the device inside it), then each stitch's counters
+    (`trace.format_counters`), also written to trace_dir/spans.txt. No-op
     when trace_dir is None, the zero-cost default.
 
     >>> with device_profile("trace"):
@@ -41,13 +50,35 @@ def device_profile(trace_dir: Optional[str]):
         return
     from torch import profiler
 
+    from autopanostitch_tpu_torch.utils import trace
+
     acts = [profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if cuda:
         acts.append(profiler.ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
-    with profiler.profile(activities=acts) as prof:
-        yield
+    records: list = []
+    undo = trace.subscribe(records.append)
+    try:
+        with profiler.profile(activities=acts) as prof:
+            yield
+    finally:
+        undo()
     prof.export_chrome_trace(os.path.join(trace_dir, TRACE_FILE))
+    busy = syncs = None
+    if cuda:
+        events = prof.profiler.kineto_results.events()
+        # the device's kernels, copies and sets (not the ranges' device rows)
+        busy = trace.merge_intervals(
+            (e.start_ns(), e.end_ns()) for e in events
+            if not str(e.device_type()).endswith("CPU") and not e.is_user_annotation())
+        syncs = np.sort(np.array([e.start_ns() for e in events if trace.is_sync(e.name())],
+                                 np.int64))
+    text = (trace.format_table(trace.summary(records, busy, syncs)) + "\n"
+            + trace.format_counters(records))
+    with open(os.path.join(trace_dir, SPANS_FILE), "w") as f:
+        f.write(text + "\n")
+    print(text)
 
 
 class Tee:

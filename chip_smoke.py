@@ -1317,7 +1317,7 @@ def run_stitch(label: str, iset, cfg, dev, mesh=None):
     wall = time.perf_counter() - t0
     counts = dict(kernels.launch_counts(), ba_graph_captures=bundle.graph_captures,
                   ba_graph_replays=bundle.graph_replays)
-    log(f"{label}: stage wall s " + json.dumps({k: round(v, 4) for k, v in timer.report().items()})
+    log(f"{label}: stage s (stream) " + json.dumps({k: round(v, 4) for k, v in timer.report().items()})
         + f" total {wall:.3f}")
     log(f"{label}: kernel launches in the stitch {json.dumps(counts)}")
     log(f"{label}: render {timer.report().get('render', 0.0):.4f} s, launches "

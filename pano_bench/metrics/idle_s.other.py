@@ -1,0 +1,16 @@
+"""Seconds a folder in which the device was idle while the host was inside a
+root `stitch` span but in none of the six stage groups of the other `idle_s`
+metrics: the program's spans (`pano_bench/spans.py`) against the device's
+busy intervals in the trace, summed over the profiled stitches and divided
+by them."""
+
+from pano_bench import spans
+
+UNIT = "s/folder"
+LAYER = "api.stitch, models/pipeline"
+MOVES = "stitch_s"
+install = spans.install
+
+
+def read(ctx):
+    return spans.idle_s(ctx, "other")

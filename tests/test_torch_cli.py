@@ -108,3 +108,20 @@ def test_tee_and_device_memory(tmp_path, capsys):
 
     if not torch.cuda.is_available():
         assert timing.report_device_memory() is None
+
+
+def test_cli_profile_writes_the_span_table(both_runs):
+    """--profile writes the tracer's table beside the trace (one stitch, its
+    stages; no device idle or waits on the CPU), then the stitch's counters,
+    and the trace shows the spans."""
+    out = both_runs[3]
+    table = (out / "trace" / timing.SPANS_FILE).read_text().splitlines()
+    assert table[0].split() == ["span", "count", "total_s", "self_s", "idle_s", "syncs"]
+    (counters,) = [line for line in table[1:] if line.startswith("counters ")]
+    rows = {line.split()[0]: line.split() for line in table[1:] if line != counters}
+    assert rows["stitch"][1] == "1" and rows["stitch"][4:] == ["-", "-"]
+    assert {"features", "render"} <= set(rows)
+    got = dict(kv.split("=") for kv in counters.split(": ", 1)[1].split())
+    assert int(got["ba.lm_iterations"]) > 0 and int(got["render.bands"]) >= 1
+    events = json.loads((out / "trace" / timing.TRACE_FILE).read_text())["traceEvents"]
+    assert "apst:stitch" in {e.get("name") for e in events}
