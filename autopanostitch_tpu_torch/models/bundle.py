@@ -525,15 +525,16 @@ def _lm_phase(inp: dict, pd: int, iters: int, st: _Statics):
 
 
 class _PhaseGraph:
-    """One LM phase shape captured as a CUDA graph (the counterpart of the
-    reference's `lm_phase_group` program): static input buffers, filled
+    """One LM phase shape, or one homography LM shape, captured as a CUDA
+    graph (the counterpart of the reference's `lm_phase_group` program and
+    of its jitted homography `lax.scan`): static input buffers, filled
     before each replay, and the output tensors each replay rewrites. The
     graph holds the phase's `iters` iterations whole, so a phase is one
     replay with no kernel launched from Python in between. It keeps its own
     memory pool: the dense system and the iterations' temporaries."""
 
     def __init__(self, inp: dict, run):
-        dev = inp["f"].device
+        dev = next(iter(inp.values())).device
         with torch.cuda.device(dev):
             self.inputs = {k: v.clone() for k, v in inp.items()}
             side = torch.cuda.Stream(dev)
@@ -563,28 +564,39 @@ class _PhaseGraph:
         return self.outputs
 
 
-_graphs: dict = {}  # (device, pd, iters, statics, (pb, M, 2), nb) -> _PhaseGraph
+# (device, pd, iters, statics, (pb, M, 2), nb) -> _PhaseGraph of a rotational
+# phase; (device, "h", ...) of the homography LM (`bundle_h.bundle_adjust_h`)
+_graphs: dict = {}
 graph_captures = 0  # _PhaseGraph captures in this process
 graph_replays = 0  # their replays
 
 
-def _run_phase(inp: dict, pd: int, iters: int, st: _Statics, graphs: bool):
-    """One LM phase: on CUDA (unless `graphs` is False) a replay of the
-    graph of its shape, captured at the shape's first phase in the
-    process; eagerly otherwise. A failed capture or replay raises."""
-    run = functools.partial(_lm_phase, pd=pd, iters=iters, st=st)
-    dev = inp["f"].device
-    trace.count("ba.phases")
-    trace.count("ba.lm_iterations", iters)
+def run_graphed(key: tuple, inp: dict, run, graphs: bool):
+    """run(inp), for an `inp` of tensors on one device whose shapes and
+    baked-in scalars `key` names: on CUDA (unless `graphs` is False) a
+    replay of the graph cached under (device,) + key, captured at the key's
+    first call in the process; eagerly otherwise. Tags the open span `ran`
+    = capture / replay / eager. A replay's outputs are the graph's own
+    buffers, which its next replay rewrites. A failed capture or replay
+    raises."""
+    dev = next(iter(inp.values())).device
     if dev.type != "cuda" or not graphs:
         trace.tag(ran="eager")
         return run(inp)
-    key = (dev, pd, iters, st, tuple(inp["u_i"].shape), inp["Rb"].shape[0])
+    key = (dev,) + key
     graph = _graphs.get(key)
     trace.tag(ran="replay" if graph is not None else "capture")
     if graph is None:
         graph = _graphs[key] = _PhaseGraph(inp, run)
     return graph(inp)
+
+
+def _run_phase(inp: dict, pd: int, iters: int, st: _Statics, graphs: bool):
+    """One LM phase, from the graph of its shape on CUDA (`run_graphed`)."""
+    trace.count("ba.phases")
+    trace.count("ba.lm_iterations", iters)
+    return run_graphed((pd, iters, st, tuple(inp["u_i"].shape), inp["Rb"].shape[0]), inp,
+                       functools.partial(_lm_phase, pd=pd, iters=iters, st=st), graphs)
 
 
 def _phase_plan(f_init, loc_pairs, extents, order, seed: int, cfg: BundleConfig):

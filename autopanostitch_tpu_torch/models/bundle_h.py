@@ -14,15 +14,22 @@ regulariser Jacobian are written in closed form; the tests hold them
 against `torch.func.jacrev`. Autodiff would give the same numbers, but on
 the card the first `vmap(jacrev(...))` of a process costs seconds of
 start-up and every iteration a storm of small launches. The LM loop keeps
-its accept/reject and lambda decisions on the device.
+its accept/reject and lambda decisions on the device, and the problem is
+padded to a bucketed (cameras, pairs) shape: on CUDA the whole loop is one
+replay of a CUDA graph keyed on that shape, captured at its first call in
+the process (`models/bundle.run_graphed`), the counterpart of the
+reference's jitted `lax.scan`.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from autopanostitch_tpu_torch.config import BundleConfig
+from autopanostitch_tpu_torch.models.bundle import _bucket, run_graphed
 from autopanostitch_tpu_torch.models.planar import chain_to_anchor
 from autopanostitch_tpu_torch.utils import trace
 
@@ -178,37 +185,50 @@ def _build(params, pair_ij, u_i, u_j, wv, sigma, sq_proj, sq_det, bidir):
     return H, g, cost + (rr * rr).sum()
 
 
-def bundle_adjust_h(params0, pair_ij, u_i, u_j, w, pair_valid, seed_idx: int,
-                    cfg: BundleConfig = BundleConfig(), iters: int = 40, bidir: bool = False):
-    """Joint LM over all homographies (tensors on one device). The seed's
-    8 columns are masked out of the system with a unit diagonal put back
-    (the gauge); a non-finite or failed solve gives a zero step; the
-    predicted reduction uses the damping of the solve. Returns ((N, 8)
-    params, final cost) as tensors; the cost is the last candidate's, as the
-    reference returns it."""
+def _lm_inputs(params0, pair_ij, u_i, u_j, wv, seed_idx: int, lam0: float, nb: int,
+               pb: int) -> dict:
+    """The LM's device inputs, padded to nb cameras and pb pairs: a padded
+    camera is the identity (no regulariser cost), a padded pair joins
+    camera 0 to itself with weight 0. `col_mask` (8 nb) is 0 on the seed's
+    and the padded cameras' columns."""
     N = params0.shape[0]
     dev, dt = params0.device, params0.dtype
-    sq_proj = float(np.sqrt(np.float32(cfg.reg_proj)))
-    sq_det = float(np.sqrt(np.float32(cfg.reg_det)))
-    wv = w * pair_valid[:, None].to(dt)
-    col_mask = torch.ones(8 * N, dtype=dt, device=dev)
-    col_mask[seed_idx * 8 : seed_idx * 8 + 8] = 0.0
-    seed_diag = torch.diag(1.0 - col_mask)
-    params = params0
-    lam = torch.tensor(cfg.lambda0, dtype=dt, device=dev)
-    cost_new = torch.zeros((), dtype=dt, device=dev)
-    args = (pair_ij, u_i, u_j, wv, cfg.sigma_huber, sq_proj, sq_det, bidir)
+    cam = torch.zeros(nb, dtype=dt, device=dev)
+    cam[:N] = 1.0
+    cam[seed_idx] = 0.0
+    eye = torch.eye(3, dtype=dt, device=dev).reshape(1, 9)[:, :8]
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros((pb - x.shape[0],) + x.shape[1:])])
+
+    return dict(params=torch.cat([params0, eye.expand(nb - N, 8)]), pair_ij=pad(pair_ij),
+                u_i=pad(u_i), u_j=pad(u_j), w=pad(wv), col_mask=cam.repeat_interleave(8),
+                lam0=torch.full((), lam0, dtype=dt, device=dev))
+
+
+def _lm_h(inp: dict, iters: int, sigma: float, sq_proj: float, sq_det: float, bidir: bool):
+    """`iters` LM iterations on `_lm_inputs`' problem, with no host read and
+    no upload, so a CUDA graph holds them whole. The masked columns (the
+    seed's: the gauge; the padded cameras') are taken out of the system
+    with a unit diagonal put back; a non-finite or failed solve gives a
+    zero step; the predicted reduction uses the damping of the solve.
+    Returns ((nb, 8) params, the last candidate's cost)."""
+    params, lam, col_mask = inp["params"], inp["lam0"], inp["col_mask"]
+    nb = params.shape[0]
+    pin = torch.diag(1.0 - col_mask)
+    cost_new = torch.zeros((), dtype=params.dtype, device=params.device)
+    args = (inp["pair_ij"], inp["u_i"], inp["u_j"], inp["w"], sigma, sq_proj, sq_det, bidir)
     for _ in range(iters):
         H, g, cost = _build(params, *args)
         H = H * col_mask[:, None] * col_mask[None, :]
         g = g * col_mask
         dH = torch.diagonal(H) + 1e-6
-        Hd = H + torch.diag(lam * dH) + seed_diag
+        Hd = H + torch.diag(lam * dH) + pin
         L, info = torch.linalg.cholesky_ex(Hd)
         delta = -torch.cholesky_solve(g[:, None], L)[:, 0]
         good = (info == 0) & torch.isfinite(delta).all()
         delta = torch.where(good, delta, torch.zeros_like(delta))
-        cand = params + delta.reshape(N, 8)
+        cand = params + delta.reshape(nb, 8)
         _, _, cost_new = _build(cand, *args)
         pred = 0.5 * (lam * (delta * dH * delta).sum() - (delta * g).sum())
         rho = (cost - cost_new) / torch.clamp(pred, min=1e-12)
@@ -218,6 +238,29 @@ def bundle_adjust_h(params0, pair_ij, u_i, u_j, w, pair_valid, seed_idx: int,
                           lam * 4.0)
         lam = torch.clamp(lam, 1e-9, 1e6)
     return params, cost_new
+
+
+def bundle_adjust_h(params0, pair_ij, u_i, u_j, w, pair_valid, seed_idx: int,
+                    cfg: BundleConfig = BundleConfig(), iters: int = 40, bidir: bool = False,
+                    graphs: bool = True):
+    """Joint LM over all homographies (tensors on one device; the seed's
+    homography is held), padded to nb = _bucket(N, 8) cameras and pb =
+    _bucket(P, 8) pairs and run by `_lm_h`: on CUDA one replay of the graph
+    of that shape (`graphs=False` runs the same padded LM eagerly). Returns
+    ((N, 8) params, final cost) as tensors; the cost is the last
+    candidate's, as the reference returns it."""
+    N, (P, M) = params0.shape[0], w.shape
+    nb, pb = _bucket(N, 8), _bucket(P, 8)
+    sigma = float(cfg.sigma_huber)
+    sq_proj = float(np.sqrt(np.float32(cfg.reg_proj)))
+    sq_det = float(np.sqrt(np.float32(cfg.reg_det)))
+    inp = _lm_inputs(params0, pair_ij, u_i, u_j, w * pair_valid[:, None].to(w.dtype), seed_idx,
+                     float(cfg.lambda0), nb, pb)
+    run = functools.partial(_lm_h, iters=iters, sigma=sigma, sq_proj=sq_proj, sq_det=sq_det,
+                            bidir=bidir)
+    params, cost = run_graphed(("h", nb, pb, M, bidir, iters, sigma, sq_proj, sq_det), inp, run,
+                               graphs)
+    return params[:N].clone(), cost.clone()  # a graph's outputs: its next replay rewrites them
 
 
 def run_bundle_adjustment_h(loc_pairs: np.ndarray, Hs: np.ndarray, pair_coords, n: int,

@@ -21,8 +21,9 @@ On the CPU:
 
 On the card (`cuda`-marked, skipped here): the kernel against the plain
 version at the ring's and pano100's phase shapes, a repeat launch
-bit-identical, and a bundle adjustment replayed from CUDA graphs
-bit-identical to the same phases run eagerly:
+bit-identical, a bundle adjustment replayed from CUDA graphs
+bit-identical to the same phases run eagerly, and likewise the homography
+bundle adjustment's LM (`models/bundle_h.py`, one graph a bucketed shape):
 
     python -m pytest --noconftest -m cuda tests/test_torch_ba_normals.py -q
 
@@ -38,9 +39,10 @@ import torch
 from autopanostitch_tpu_torch.config import BundleConfig
 from autopanostitch_tpu_torch.kernels import ba as kba
 from autopanostitch_tpu_torch.models import bundle as tba
+from autopanostitch_tpu_torch.models import bundle_h as tbh
 from autopanostitch_tpu_torch.ops import geometry as geo
 from autopanostitch_tpu_torch.ops import projections as proj
-from autopanostitch_tpu_torch.utils.ba_scene import perturbed_state, ring_scene
+from autopanostitch_tpu_torch.utils.ba_scene import perturbed_state, planar_scene, ring_scene
 
 try:  # jax-free runs on the card skip the fixture with the jax imports beside it
     from test_torch_pipeline import one_torch_thread  # noqa: F401
@@ -427,3 +429,33 @@ def test_graph_replayed_ba_equals_eager_on_card(pd):
             assert b is None and c is None
             continue
         assert torch.equal(a, b) and torch.equal(b, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bidir", [False, True])
+def test_graph_replayed_homography_lm_equals_eager_on_card(bidir):
+    """The homography LM of a 3 x 3 planar scan (9 -> 16 cameras, M 300)
+    replayed from its CUDA graph equals the same padded LM run eagerly
+    (`graphs=False`) bit for bit, with 20 pairs and with 18; both pad to 32
+    pairs, so the second problem replays the first one's graph without a
+    capture, and the first result, a copy, is left as it was."""
+    dev = _cuda()
+    sc = planar_scene(3, 3, 300, seed=21)
+    cfg = BundleConfig()
+
+    def lm(npairs, graphs):
+        args = [torch.as_tensor(sc["params0"], device=dev)]
+        args += [torch.as_tensor(sc[k][:npairs], device=dev) for k in ("pairs", "u_i", "u_j", "w")]
+        args.append(torch.ones(npairs, dtype=torch.bool, device=dev))
+        return tbh.bundle_adjust_h(*args, 4, cfg=cfg, iters=cfg.max_iter_lm, bidir=bidir,
+                                   graphs=graphs)
+
+    eager = {n: lm(n, False) for n in (20, 18)}
+    first = lm(20, True)
+    before = (tba.graph_captures, tba.graph_replays)
+    second = lm(18, True)
+    torch.cuda.synchronize()
+    assert (tba.graph_captures - before[0], tba.graph_replays - before[1]) == (0, 1)
+    for n, got in ((20, first), (18, second)):
+        assert torch.equal(got[0], eager[n][0]) and torch.equal(got[1], eager[n][1])
+    assert (first[0] - torch.as_tensor(sc["params0"], device=dev)).abs().max() > 0.1

@@ -2,7 +2,11 @@
 samplers, homography warping and output limits, canvas bounds, planar
 compositing and the chained planar render, planar gains, the homography
 bundle adjustment with its closed-form Jacobians, and the
-`config1_planar_pair` golden.
+`config1_planar_pair` golden. The homography LM's graph-safe body (seed and
+lambda0 as tensors) equals the first eager loop bit for bit, its bucketed,
+padded problem gives the unpadded one's result within the JAX parity
+tolerances, and on the CPU it runs eagerly (the card's graph replay:
+`tests/test_torch_ba_normals.py`).
 
 Tolerances: samplers, warps and limits atol 1e-5 (float32, same formulas); canvas
 bounds equal; composites within one uint8 level (float32 sums in another
@@ -25,11 +29,14 @@ from autopanostitch_tpu.models import bundle_h as jbh
 from autopanostitch_tpu.models import gain as jgain
 from autopanostitch_tpu.models import planar as jplanar
 from autopanostitch_tpu.ops import sampling as jsamp
+from autopanostitch_tpu_torch.models import bundle as tba
 from autopanostitch_tpu_torch.models import bundle_h as tbh
 from autopanostitch_tpu_torch.models import gain as tgain
 from autopanostitch_tpu_torch.models import pipeline as tpipe
 from autopanostitch_tpu_torch.models import planar as tplanar
 from autopanostitch_tpu_torch.ops import sampling as tsamp
+from autopanostitch_tpu_torch.utils import trace
+from autopanostitch_tpu_torch.utils.ba_scene import planar_scene
 from test_torch_pipeline import REPO, _assert_golden, one_torch_thread  # noqa: F401
 
 # image k -> anchor (image 0) frame of three 200 x 160 crops, near-translations
@@ -201,6 +208,113 @@ def test_homography_ba_matches_jax(one_direction):
     G /= G[:, 2:3, 2:3]
     truth = np.linalg.inv(H_ABS[rt["anchor"]]) @ H_ABS
     assert np.abs(G[:, :2, 2] - truth[:, :2, 2]).max() < 0.5
+
+
+def _h_args(npairs: int, M: int = 120):
+    """The homography LM's inputs on a 3 x 3 planar scan (`planar_scene`),
+    its first `npairs` pairs."""
+    sc = planar_scene(3, 3, M, seed=3)
+    return (torch.as_tensor(sc["params0"]), torch.as_tensor(sc["pairs"][:npairs]),
+            torch.as_tensor(sc["u_i"][:npairs]), torch.as_tensor(sc["u_j"][:npairs]),
+            torch.as_tensor(sc["w"][:npairs]), torch.ones(npairs, dtype=torch.bool))
+
+
+def _lm_at(args, nb, pb, seed, cfg, bidir):
+    """`_lm_h` on the problem padded to nb cameras and pb pairs."""
+    p0, pij, u_i, u_j, w, pv = args
+    inp = tbh._lm_inputs(p0, pij, u_i, u_j, w * pv[:, None].to(w.dtype), seed,
+                         float(cfg.lambda0), nb, pb)
+    return tbh._lm_h(inp, cfg.max_iter_lm, float(cfg.sigma_huber),
+                     float(np.sqrt(np.float32(cfg.reg_proj))),
+                     float(np.sqrt(np.float32(cfg.reg_det))), bidir)
+
+
+def _lm_as_first_ported(params0, pair_ij, u_i, u_j, w, pair_valid, seed_idx, cfg, bidir):
+    """The eager LM loop as the port first wrote it: the gauge's mask from
+    the Python seed index, lambda0 uploaded, no padding."""
+    N = params0.shape[0]
+    dt = params0.dtype
+    sq_proj = float(np.sqrt(np.float32(cfg.reg_proj)))
+    sq_det = float(np.sqrt(np.float32(cfg.reg_det)))
+    wv = w * pair_valid[:, None].to(dt)
+    col_mask = torch.ones(8 * N, dtype=dt)
+    col_mask[seed_idx * 8 : seed_idx * 8 + 8] = 0.0
+    seed_diag = torch.diag(1.0 - col_mask)
+    params = params0
+    lam = torch.tensor(cfg.lambda0, dtype=dt)
+    cost_new = torch.zeros((), dtype=dt)
+    args = (pair_ij, u_i, u_j, wv, cfg.sigma_huber, sq_proj, sq_det, bidir)
+    for _ in range(cfg.max_iter_lm):
+        H, g, cost = tbh._build(params, *args)
+        H = H * col_mask[:, None] * col_mask[None, :]
+        g = g * col_mask
+        dH = torch.diagonal(H) + 1e-6
+        Hd = H + torch.diag(lam * dH) + seed_diag
+        L, info = torch.linalg.cholesky_ex(Hd)
+        delta = -torch.cholesky_solve(g[:, None], L)[:, 0]
+        good = (info == 0) & torch.isfinite(delta).all()
+        delta = torch.where(good, delta, torch.zeros_like(delta))
+        cand = params + delta.reshape(N, 8)
+        _, _, cost_new = tbh._build(cand, *args)
+        pred = 0.5 * (lam * (delta * dH * delta).sum() - (delta * g).sum())
+        rho = (cost - cost_new) / torch.clamp(pred, min=1e-12)
+        accept = (cost_new < cost) & torch.isfinite(cost_new)
+        params = torch.where(accept, cand, params)
+        lam = torch.where(accept, lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0),
+                          lam * 4.0)
+        lam = torch.clamp(lam, 1e-9, 1e6)
+    return params, cost_new
+
+
+@pytest.mark.parametrize("bidir", [False, True])
+def test_graph_safe_lm_equals_the_first_eager_loop(bidir):
+    """`_lm_h`, with the seed and lambda0 passed in as tensors and the
+    problem unpadded, gives the first eager loop's result bit for bit."""
+    args, cfg = _h_args(20), BundleConfig()
+    got = _lm_at(args, 9, 20, 4, cfg, bidir)
+    ref = _lm_as_first_ported(*args, 4, cfg, bidir)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("bidir", [False, True])
+@pytest.mark.parametrize("npairs", [20, 16])  # 20 pads to 32 pairs; 16 fills its bucket
+def test_padded_homography_lm_matches_unpadded(bidir, npairs):
+    """`bundle_adjust_h` pads the 9 cameras to 16 and the pairs to their
+    bucket; it gives the unpadded problem's homographies and cost within
+    `test_homography_ba_matches_jax`'s tolerances. The padded cameras stay
+    the identity, and the seed its start, exactly."""
+    args, cfg = _h_args(npairs), BundleConfig()
+    params, cost = tbh.bundle_adjust_h(*args, 4, cfg=cfg, iters=cfg.max_iter_lm, bidir=bidir)
+    ref_p, ref_c = _lm_at(args, 9, npairs, 4, cfg, bidir)
+    assert params.shape == (9, 8)
+    np.testing.assert_allclose(params.numpy(), ref_p.numpy(), rtol=0.02, atol=0.05)
+    assert float(cost) == pytest.approx(float(ref_c), rel=0.05)
+    padded, _ = _lm_at(args, 16, 32 if npairs == 20 else 16, 4, cfg, bidir)
+    assert torch.equal(padded[:9], params)
+    assert torch.equal(padded[9:], torch.eye(3).reshape(1, 9)[:, :8].expand(7, 8))
+    assert torch.equal(padded[4], args[0][4])
+    assert (params - args[0]).abs().max() > 0.1  # the other cameras moved
+
+
+def test_homography_lm_runs_eagerly_on_the_cpu():
+    """On the CPU `ba_h.lm` is tagged `eager`, and no graph is captured or
+    replayed."""
+    pairs, Hs, coords = _pair_coords()
+    before = (tba.graph_captures, tba.graph_replays, len(tba._graphs))
+    records = []
+    undo = trace.subscribe(records.append)
+    try:
+        with trace.stitch(["a", "b", "c"], np.full((3, 2), 160, np.int32)):
+            tbh.run_bundle_adjustment_h(pairs, Hs, coords, 3, BundleConfig(max_iter_lm=4),
+                                        device="cpu")
+    finally:
+        undo()
+    lm = [s for s in records[0].spans if s.name == "ba_h.lm"]
+    assert len(lm) == 1 and lm[0].tags["ran"] == "eager"
+    counters = records[0].counters
+    assert counters["ba.lm_iterations"] == 4
+    assert "ba.graph_captures" not in counters and "ba.graph_replays" not in counters
+    assert (tba.graph_captures, tba.graph_replays, len(tba._graphs)) == before
 
 
 @pytest.mark.parametrize("bidir", [False, True])
