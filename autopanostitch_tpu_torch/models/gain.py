@@ -19,6 +19,7 @@ from autopanostitch_tpu_torch.config import GainConfig
 from autopanostitch_tpu_torch.ops import geometry as geo
 from autopanostitch_tpu_torch.ops import projections as proj
 from autopanostitch_tpu_torch.ops import sampling as samp
+from autopanostitch_tpu_torch.utils import trace
 
 
 def overlap_statistics_imagespace(images, feathers, sizes, R, K, stride: int,
@@ -63,6 +64,7 @@ def overlap_statistics_imagespace(images, feathers, sizes, R, K, stride: int,
 
     P = xs.shape[0]
     chunk = max(1, max_elems // (N * N))
+    trace.count("gain.chunks", -(-P // chunk))
     Nij = torch.zeros((N, N), device=dev)
     sumC = torch.zeros((N, N, 3), device=dev)
     for s in range(0, P, chunk):

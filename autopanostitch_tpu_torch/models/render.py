@@ -328,8 +328,11 @@ def render_tile_list(images, feathers, R, K, gains, k1, sel, sel_ok, origins, ca
                 th, tw, blend_mode, angle_power, interp)
             if blend_mode == "multiband":
                 out = blend_ops.multiband_blend(*out, bands=bands, to_u8=True)
+            n = min(e, T) - s
             trace.count("render.tile_batches")
-            trace.count("render.tiles", min(e, T) - s)
+            trace.count("render.tiles", n)
+            trace.count("render.slots", n * C)
+            trace.count("render.slots_live", int(np.count_nonzero(sel_ok[s:e])))
         tiles.append(out[0])
         covs.append(out[1])
     if not tiles:

@@ -188,3 +188,65 @@ def test_stamps_share_the_profilers_clock():
     mine = sorted(s.start_ns for s in rec.spans if s.name == "probe")
     assert len(starts) == len(mine) == 3
     assert max(abs(a - b) for a, b in zip(starts, mine)) < 1_000_000
+
+
+def test_render_slot_counters():
+    """`render_tile_list` counts, for each launch, its tiles' C slots
+    (`render.slots`) and those that hold an image (`render.slots_live`, the
+    true entries of `sel_ok`); nothing records where nothing listens."""
+    from autopanostitch_tpu_torch.models import render as trender
+
+    n, h, w, f = 3, 48, 64, 60.0
+    rng = np.random.default_rng(0)
+    imgs = torch.as_tensor(rng.uniform(size=(n, h, w, 3)), dtype=torch.float32)
+    feathers = torch.ones((n, h, w))
+    c, s = np.cos(0.6 * np.arange(n)), np.sin(0.6 * np.arange(n))
+    R = np.zeros((n, 3, 3), np.float32)
+    R[:, 0, 0], R[:, 0, 2], R[:, 1, 1], R[:, 2, 0], R[:, 2, 2] = c, -s, 1, s, c
+    K = np.tile(np.array([[f, 0, (w - 1) / 2], [0, f, (h - 1) / 2], [0, 0, 1]], np.float32),
+                (n, 1, 1))
+    sizes = np.array([[h, w]] * n, np.int32)
+    canvas = trender.compute_canvas(R, K, sizes, "spherical")
+    tile = (16, 32)
+    sel, ok, origins = trender.tile_contributors(canvas, R, K, sizes, tile)
+    T, C = sel.shape
+    assert 0 < ok.sum() < T * C
+    args = (imgs, feathers, R, K, np.ones((n, 3), np.float32), None, sel, ok, origins, canvas,
+            tile, "linear", 3, 1.0, "bilinear", 3)
+    assert trace.stitch(["a", "b", "c"], sizes) is trace.NULL
+    trender.render_tile_list(*args)  # nothing listens
+    records = []
+    undo = trace.subscribe(records.append)
+    try:
+        with trace.stitch(["a", "b", "c"], sizes):
+            trender.render_tile_list(*args)
+    finally:
+        undo()
+    (rec,) = records
+    cnt = rec.counters
+    assert cnt["render.tiles"] == T
+    assert cnt["render.tile_batches"] == -(-T // 3)
+    assert cnt["render.slots"] == T * C
+    assert cnt["render.slots_live"] == int(ok.sum())
+
+
+def test_gain_chunk_counter():
+    """`overlap_statistics_imagespace` counts its grid chunks (`gain.chunks`,
+    read by `cli --profile`)."""
+    from autopanostitch_tpu_torch.models import gain as tgain
+
+    n, h, w = 3, 30, 40
+    imgs = torch.rand((n, h, w, 3))
+    K = torch.tensor([[50.0, 0, 19.5], [0, 50.0, 14.5], [0, 0, 1]]).expand(n, 3, 3)
+    R = torch.eye(3).expand(n, 3, 3)
+    sizes = torch.tensor([[h, w]] * n, dtype=torch.int32)
+    records = []
+    undo = trace.subscribe(records.append)
+    try:
+        with trace.stitch(["a", "b", "c"], sizes.numpy()):
+            tgain.overlap_statistics_imagespace(imgs, torch.ones((n, h, w)), sizes, R, K, 3,
+                                                max_elems=9 * 25)
+    finally:
+        undo()
+    points = 10 * 14  # the stride-3 grid of a 30 x 40 image
+    assert records[0].counters["gain.chunks"] == -(-points // 25)
