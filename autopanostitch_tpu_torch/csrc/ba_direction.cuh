@@ -1,6 +1,6 @@
 // The per-match arithmetic of the rotational bundle adjustment's
-// linearisation, shared by `ba_normals.cu` (per pair) and `ba_system.cu`
-// (the whole dense system): one direction s -> d of a match's residual and
+// linearisation, included by `ba_system.cu` (the whole dense system): one
+// direction s -> d of a match's residual and
 // its closed-form Jacobian (Brown-Lowe Eq. 20-23; kernels/ba.py holds the
 // plain PyTorch version and its derivation).
 

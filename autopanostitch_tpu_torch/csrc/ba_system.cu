@@ -6,9 +6,8 @@
 // (autopanostitch_tpu/models/bundle.py:715): `pair_system` (:682; no Pallas
 // kernel, XLA fuses it inside the LM phase program) over the pairs, then
 // scatter-adds of each pair's four PD x PD blocks and of g. The per-match
-// arithmetic is `ba_normals.cu`'s (`ba_direction.cuh`); `ba_normals.cu`
-// with the one-hot einsum assembly of `kernels/ba.py` stays as the
-// yardstick, off the main path.
+// arithmetic is `ba_direction.cuh`'s; the plain version (`kernels/ba.py`)
+// sums per-pair blocks and assembles them by one-hot einsums.
 //
 // What bounds it on an H100: at BA's sizes (<= 128 pairs of <= 300 match
 // slots, 17-22 % of them real on chip_smoke.py's scenes) neither bytes (H's
@@ -22,8 +21,8 @@
 //     runs in warp slot c % kSlots, so consecutive chunks land on different
 //     SMs and no slot computes padding. In a warp, lanes 0-15 take direction
 //     i -> j of the chunk's 16 matches and lanes 16-31 direction j -> i:
-//     each lane runs one direction's residual and Jacobian chain (half the
-//     chain a thread of `ba_normals` runs) and swaps its depth with its
+//     each lane runs one direction's residual and Jacobian chain (half of
+//     a match's chain) and swaps its depth with its
 //     partner for the front-facing mask. A chunk's u_i, u_j, w and the
 //     pair's two cameras go in flight together (cp.async into shared
 //     memory, after one load of the pair's indices; a slot's next chunk is
@@ -378,8 +377,8 @@ extern "C" int apst_ba_system(const float* Rb, const float* f, const float* k1, 
                    one_direction, rec, H, g, cost, s);
 }
 
-// An empty kernel: the launch floor that chip_smoke.py and tools/ba_probe.py
-// time beside the linearisation.
+// An empty kernel: the launch floor that chip_smoke.py times beside the
+// linearisation.
 extern "C" int apst_noop(void* stream) {
   noop_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());

@@ -170,9 +170,9 @@
 //     branch-free push. Tiles are filtered in ascending order, so push's
 //     ascending-index assumption and the strict (distance, index) order
 //     hold. A candidate costs a whole warp a group; that second pass, not
-//     the products, still holds the kernel (tools/knn_bf16_probe.py on an
-//     H100: without any epilogue the pooled case takes 0.72 ms, with the
-//     first pass only 1.13 ms, whole 1.81 ms).
+//     the products, still holds the kernel (on an H100, with parts of the
+//     epilogue compiled out: without any epilogue the pooled case takes
+//     0.72 ms, with the first pass only 1.13 ms, whole 1.81 ms).
 //   - One pass at every width: a warp loads its query fragments for all of
 //     D once (D / 4 registers: 64 at D = 256). A tile is wgmma.m64n128k16
 //     where a ring of such stages fits (D <= 128), else m64n64k16.

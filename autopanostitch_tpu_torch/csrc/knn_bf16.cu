@@ -14,13 +14,9 @@
 
 namespace b1 {
 
-// every width; tools/knn_bf16_probe.py builds only those it times
+// every width
 template <int K>
-#ifdef APST_PROBE_TIMED_WIDTHS
-using Bf16All = Bf16Widths<K, 128, 256>;
-#else
 using Bf16All = Bf16Widths<K, 32, 64, 96, 128, 160, 192, 224, 256>;
-#endif
 
 cudaError_t launch_bf16(int K, int D, const Bf16Pooled& a, cudaStream_t s) {
   switch (K) {

@@ -11,16 +11,6 @@
 #include "knn.cuh"
 #include "tma.cuh"
 
-// Switches of tools/knn_bf16_probe.py, which times the loop with a part
-// taken out or changed; none is set in the package's build, and the ones
-// that skip work give wrong neighbours:
-//   APST_PROBE_FIRST_PASS       the epilogue's second pass (the pushes) skipped
-//   APST_PROBE_NO_EPILOGUE      the epilogue skipped: products, ring, barriers
-//   APST_PROBE_CLUSTER_RELEASE  the remote arrivals on the empty barriers
-//                               released at the cluster's scope
-// The skips test a word no thread writes, so the compiler keeps the work
-// before them.
-
 namespace b1 {
 
 constexpr int BF_NT = 384;       // two consumer warpgroups of 64 query rows, one producer warpgroup
@@ -105,15 +95,11 @@ __device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
 // arrive on the barrier at bar's offset in block `rank` of the cluster
 // (release at the block's scope: the stage's reads it covers are this
 // block's own; a cluster-scope release made the pooled case 1.5 times as
-// slow, tools/knn_bf16_probe.py)
+// slow on an H100)
 __device__ __forceinline__ void mbar_arrive_at(uint64_t* bar, uint32_t rank) {
   asm volatile(
       "{\n .reg .b32 ra;\n mapa.shared::cluster.u32 ra, %0, %1;\n"
-#ifdef APST_PROBE_CLUSTER_RELEASE
-      " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n"
-#else
       " mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n"
-#endif
       ::"r"(smem_addr(bar)),
       "r"(rank)
       : "memory");
@@ -365,9 +351,6 @@ __device__ __forceinline__ void bf16_epilogue(float (&acc)[BN / 2], const float*
                                               const int (&self)[2], float (&bd)[2][K],
                                               int (&bi)[2][K], int tg) {
   constexpr int NW = (BN / 8 + 7) / 8;  // candidate words
-#ifdef APST_PROBE_NO_EPILOGUE
-  if (s_tid[0] != 0x12345678) return;
-#endif
   float lim[2];
   bool fill[2];
 #pragma unroll
@@ -394,9 +377,6 @@ __device__ __forceinline__ void bf16_epilogue(float (&acc)[BN / 2], const float*
 #pragma unroll
   for (int w = 0; w < NW; ++w) any |= cand[w];
   if (!__any_sync(0xffffffffu, any != 0u)) return;
-#ifdef APST_PROBE_FIRST_PASS
-  if (s_tid[0] != 0x12345678) return;
-#endif
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const uint32_t bits = (cand[j / 8] >> (4 * (j % 8))) & 0xFu;

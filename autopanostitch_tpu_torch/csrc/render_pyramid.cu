@@ -59,11 +59,6 @@
 // taps, and no atomics: a tile's bytes do not depend on the tiles launched
 // beside it. This file is compiled with FMA contraction (the default): the
 // plain versions go through cuDNN and cuBLAS and are held within 1e-5.
-//
-// Variants for `tools/pyramid_probe.py` only (the `variant` argument; the
-// main path passes 0): 1 runs the loads and the pipeline's waits and
-// barriers with no arithmetic and no stores, 2 runs the arithmetic and the
-// stores on the shared memory as it stands, with no loads but the tables'.
 
 #include <cuda_runtime.h>
 
@@ -74,8 +69,6 @@ namespace {
 
 constexpr float kEps = 1e-8f;
 constexpr int kSmemMax = 232448;  // a block's shared memory on an H100
-
-enum Variant { kWhole = 0, kLoadsOnly = 1, kComputeOnly = 2 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -230,10 +223,10 @@ __device__ __forceinline__ RTabs reduce_tabs(const ReduceArgs& a, const float* b
                reinterpret_cast<const int*>(y + kRTY), y + 2 * kRTY};
 }
 
-// a stage's copies: its tile's tables (full stages) and (data) its window
+// a stage's copies: its tile's tables (full stages) and its window
 template <bool kL0>
 __device__ __forceinline__ void reduce_issue(const ReduceArgs& a, RStage s, const RTile& t,
-                                             float* buf, bool data) {
+                                             float* buf) {
   const size_t bc = static_cast<size_t>(t.b) * a.C + s.c;
   float* sw = buf + a.span_y * a.pitch_c;
   if (!s.w) {  // the tile's tables (a few words a thread), which the full stages read
@@ -264,7 +257,6 @@ __device__ __forceinline__ void reduce_issue(const ReduceArgs& a, RStage s, cons
       }
     }
   }
-  if (!data) return;
   if (kL0) {
     copy_rows<kRWarps>(sw, a.pitch_w, 1, a.w + (bc * a.h + t.ry0) * a.w_ + t.cx0, a.w_, t.sy,
                        t.sx);
@@ -397,7 +389,7 @@ __device__ __forceinline__ void reduce_cols(const ReduceArgs& a, const RTile& t,
   }
 }
 
-template <bool kL0, int kVariant, int kN>
+template <bool kL0, int kN>
 __global__ void __launch_bounds__(kRThreads, 1)
     mb_reduce_kernel(const __grid_constant__ ReduceArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -405,11 +397,6 @@ __global__ void __launch_bounds__(kRThreads, 1)
   float* const mid = smem + 2 * buf_floats;  // (4 span_y, kMid)
   float* const wsum = mid + 4 * a.span_y * kMid;  // level 0: (span_y, pitch_w) sums
   float* const winv = wsum + a.span_y * a.pitch_w;  // ... and their reciprocals
-  if (kVariant == kComputeOnly) {
-    const int n = 2 * buf_floats + 4 * a.span_y * kMid + 2 * a.span_y * a.pitch_w;
-    for (int k = threadIdx.x; k < n; k += kRThreads) smem[k] = 0.5f;
-    __syncthreads();
-  }
   RStage s{static_cast<int>(blockIdx.x), 0, kL0};
   if (s.g >= a.groups) return;
   RTile t = reduce_tile(a, s.g);
@@ -421,9 +408,7 @@ __global__ void __launch_bounds__(kRThreads, 1)
     ahead = n;
     return n.g < a.groups;
   };
-  // the arithmetic-only variant copies the tables alone
-  constexpr bool kData = kVariant != kComputeOnly;
-  reduce_issue<kL0>(a, ahead, at, smem, kData);
+  reduce_issue<kL0>(a, ahead, at, smem);
   cp_commit();
   for (int kb = 0;; kb ^= 1) {  // stage computes in buffer kb while the next loads into the other
     float* const buf = smem + kb * buf_floats;
@@ -437,25 +422,24 @@ __global__ void __launch_bounds__(kRThreads, 1)
       // no weights-only stage reads; only the first weights-only stage of a
       // tile follows full stages, whose column pass reads their tables
       if (s.c == 0) __syncthreads();
-      if (advance()) reduce_issue<kL0>(a, ahead, at, next_buf, kData);
+      if (advance()) reduce_issue<kL0>(a, ahead, at, next_buf);
       cp_commit();
       cp_wait<1>();
-      if (kVariant != kLoadsOnly)
-        for_rows<kRWarps>(t.sy, t.sx, [&](int r, int q) {
-          const int i = r * a.pitch_w + q;
-          // the last contributor's stage keeps max(sum, eps) and its
-          // reciprocal (0 where the sum is at most eps)
-          const float sum = (s.c == 0 ? 0.f : wsum[i]) + sw[i];
-          if (s.c + 1 < a.C) {
-            wsum[i] = sum;
-          } else {
-            wsum[i] = fmaxf(sum, kEps);
-            winv[i] = sum > kEps ? 1.f / fmaxf(sum, kEps) : 0.f;
-          }
-        });
+      for_rows<kRWarps>(t.sy, t.sx, [&](int r, int q) {
+        const int i = r * a.pitch_w + q;
+        // the last contributor's stage keeps max(sum, eps) and its
+        // reciprocal (0 where the sum is at most eps)
+        const float sum = (s.c == 0 ? 0.f : wsum[i]) + sw[i];
+        if (s.c + 1 < a.C) {
+          wsum[i] = sum;
+        } else {
+          wsum[i] = fmaxf(sum, kEps);
+          winv[i] = sum > kEps ? 1.f / fmaxf(sum, kEps) : 0.f;
+        }
+      });
     } else {
       cp_wait<0>();
-      if (kL0 && kVariant != kLoadsOnly)  // normalise the weights this thread copied
+      if (kL0)  // normalise the weights this thread copied
         for_rows<kRWarps>(t.sy, t.sx, [&](int r, int q) {
           // w / sum, rounded as the division rounds it: the quotient from
           // the reciprocal, corrected by its exact residual
@@ -464,12 +448,12 @@ __global__ void __launch_bounds__(kRThreads, 1)
           sw[i] = fmaf(fmaf(-q0, wsum[i], sw[i]), winv[i], q0);
         });
       __syncthreads();  // the stage's window is in; the stage before it is done
-      if (advance()) reduce_issue<kL0>(a, ahead, at, next_buf, kData);
+      if (advance()) reduce_issue<kL0>(a, ahead, at, next_buf);
       cp_commit();
       const RTabs tb = reduce_tabs(a, buf);
-      if (kVariant != kLoadsOnly) reduce_rows<kN>(a, t, buf, tb, mid);
+      reduce_rows<kN>(a, t, buf, tb, mid);
       __syncthreads();
-      if (kVariant != kLoadsOnly) reduce_cols<kN>(a, t, s.c, tb, mid);
+      reduce_cols<kN>(a, t, s.c, tb, mid);
     }
     if (!more) break;
     if (n.g != s.g) t = reduce_tile(a, n.g);
@@ -649,7 +633,6 @@ __device__ __forceinline__ void level_pixel(const CollapseArgs& a, int l, const 
   den = den + wv;
 }
 
-template <int kVariant>
 __global__ void __launch_bounds__(kCThreads, 3)
     mb_collapse_kernel(const __grid_constant__ CollapseArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -658,11 +641,6 @@ __global__ void __launch_bounds__(kCThreads, 3)
   float* const O = V + a.v_floats;  // two levels' results, level l's at (l & 1) o_floats
   Up* const tabs = reinterpret_cast<Up*>(O + 2 * a.o_floats);  // the item's up2 tables, by parity
   float* const A = O + 2 * a.o_floats + 2 * a.tab_floats;  // the sums of levels >= 2
-  if (kVariant == kComputeOnly) {
-    const int n = 2 * a.buf_floats + a.v_floats + 2 * a.o_floats;
-    for (int k = threadIdx.x; k < n; k += kCThreads) smem[k] = 0.5f;
-    __syncthreads();
-  }
   int item = static_cast<int>(blockIdx.x);
   if (item >= a.items) return;
   const int tid = static_cast<int>(threadIdx.x);
@@ -671,7 +649,7 @@ __global__ void __launch_bounds__(kCThreads, 3)
   float n0[kRows0][3], d0[kRows0], n1[kSlots1][3], d1[kSlots1];
   Region g0{}, g1{};
   int b = 0, par = 0;
-  if (kVariant != kComputeOnly) collapse_issue(a, item, 0, nullptr, smem);
+  collapse_issue(a, item, 0, nullptr, smem);
   cp_commit();
   for (int c = 0, kb = 0;;) {
     const float* const buf = smem + kb * a.buf_floats;
@@ -703,46 +681,43 @@ __global__ void __launch_bounds__(kCThreads, 3)
     const Up* const tab = tabs + par * (a.tab_floats / 4);
     cp_wait<0>();
     __syncthreads();  // the stage's data and the regions are in; the stage before is done
-    if (more && kVariant != kComputeOnly)
+    if (more)
       collapse_issue(a, next_item, next_c, next_item == item ? reg : nullptr,
                      smem + (kb ^ 1) * a.buf_floats);
     cp_commit();
-    if (kVariant != kLoadsOnly)
-      for (int l = 0; l + 1 < a.L; ++l)
-        up_rows(Region{reg[l].x, reg[l].y, reg[l].z, reg[l].w},
-                Region{reg[l + 1].x, reg[l + 1].y, reg[l + 1].z, reg[l + 1].w},
-                tab + a.lv[l].toff, buf + a.lv[l + 1].off, V + a.lv[l].voff);
+    for (int l = 0; l + 1 < a.L; ++l)
+      up_rows(Region{reg[l].x, reg[l].y, reg[l].z, reg[l].w},
+              Region{reg[l + 1].x, reg[l + 1].y, reg[l + 1].z, reg[l + 1].w},
+              tab + a.lv[l].toff, buf + a.lv[l + 1].off, V + a.lv[l].voff);
     __syncthreads();
-    if (kVariant != kLoadsOnly) {
-      if (x0 < g0.cw) {  // level 0: raw weights, normalised at the end
-        const int n = g0.rh * g0.cw;
+    if (x0 < g0.cw) {  // level 0: raw weights, normalised at the end
+      const int n = g0.rh * g0.cw;
 #pragma unroll
-        for (int q = 0; q < kRows0; ++q) {
-          const int r = y0 + kStep0 * q;
-          if (r >= g0.rh) continue;
-          float up[3] = {0.f, 0.f, 0.f};
-          if (a.L > 1) up_at(tab[g0.rh + x0], V + a.lv[0].voff, g0.rh, g1.cw, r, up);
-          const int p = r * g0.cw + x0;
-          const float wv = buf[3 * n + p];
+      for (int q = 0; q < kRows0; ++q) {
+        const int r = y0 + kStep0 * q;
+        if (r >= g0.rh) continue;
+        float up[3] = {0.f, 0.f, 0.f};
+        if (a.L > 1) up_at(tab[g0.rh + x0], V + a.lv[0].voff, g0.rh, g1.cw, r, up);
+        const int p = r * g0.cw + x0;
+        const float wv = buf[3 * n + p];
 #pragma unroll
-          for (int ch = 0; ch < 3; ++ch)
-            n0[q][ch] = fmaf(buf[3 * p + ch] - up[ch], wv, n0[q][ch]);
-          d0[q] = d0[q] + wv;
-        }
+        for (int ch = 0; ch < 3; ++ch)
+          n0[q][ch] = fmaf(buf[3 * p + ch] - up[ch], wv, n0[q][ch]);
+        d0[q] = d0[q] + wv;
       }
-      if (a.L > 1) {
+    }
+    if (a.L > 1) {
 #pragma unroll
-        for (int q = 0; q < kSlots1; ++q)
-          level_pixel<false>(a, 1, reg, tab, buf, V, tid + q * kCThreads, n1[q], d1[q], nullptr);
-      }
-      for (int l = 2; l < a.L; ++l) {
-        const CLevel& v = a.lv[l];
-        if (tid >= v.an) continue;
-        float* const s = A + v.aoff + tid;
-        float num[3] = {s[0], s[v.an], s[2 * v.an]}, den = s[3 * v.an];
-        level_pixel<false>(a, l, reg, tab, buf, V, tid, num, den, nullptr);
-        s[0] = num[0], s[v.an] = num[1], s[2 * v.an] = num[2], s[3 * v.an] = den;
-      }
+      for (int q = 0; q < kSlots1; ++q)
+        level_pixel<false>(a, 1, reg, tab, buf, V, tid + q * kCThreads, n1[q], d1[q], nullptr);
+    }
+    for (int l = 2; l < a.L; ++l) {
+      const CLevel& v = a.lv[l];
+      if (tid >= v.an) continue;
+      float* const s = A + v.aoff + tid;
+      float num[3] = {s[0], s[v.an], s[2 * v.an]}, den = s[3 * v.an];
+      level_pixel<false>(a, l, reg, tab, buf, V, tid, num, den, nullptr);
+      s[0] = num[0], s[v.an] = num[1], s[2 * v.an] = num[2], s[3 * v.an] = den;
     }
     if (c + 1 == a.C) {  // the item's collapse, coarse to fine
 #pragma unroll
@@ -752,13 +727,11 @@ __global__ void __launch_bounds__(kCThreads, 3)
         const CLevel& v = a.lv[l];
         float* const Ol = O + (l & 1) * a.o_floats;
         if (l + 1 < a.L) {
-          if (kVariant != kLoadsOnly)
-            up_rows(Region{reg[l].x, reg[l].y, reg[l].z, reg[l].w},
-                    Region{reg[l + 1].x, reg[l + 1].y, reg[l + 1].z, reg[l + 1].w},
-                    tab + v.toff, O + ((l + 1) & 1) * a.o_floats, V + v.voff);
+          up_rows(Region{reg[l].x, reg[l].y, reg[l].z, reg[l].w},
+                  Region{reg[l + 1].x, reg[l + 1].y, reg[l + 1].z, reg[l + 1].w},
+                  tab + v.toff, O + ((l + 1) & 1) * a.o_floats, V + v.voff);
           __syncthreads();
         }
-        if (kVariant == kLoadsOnly) continue;
         if (l >= 2) {
           if (tid < v.an) {
             const float* const s = A + v.aoff + tid;
@@ -827,12 +800,8 @@ int launch(Kernel kern, int threads, size_t smem, int items, cudaStream_t stream
 }
 
 template <bool kL0, int kN>
-int launch_reduce(const ReduceArgs& a, size_t smem, int variant, cudaStream_t s) {
-  if (variant == kLoadsOnly)
-    return launch(mb_reduce_kernel<kL0, kLoadsOnly, kN>, kRThreads, smem, a.groups, s, a);
-  if (variant == kComputeOnly)
-    return launch(mb_reduce_kernel<kL0, kComputeOnly, kN>, kRThreads, smem, a.groups, s, a);
-  return launch(mb_reduce_kernel<kL0, kWhole, kN>, kRThreads, smem, a.groups, s, a);
+int launch_reduce(const ReduceArgs& a, size_t smem, cudaStream_t s) {
+  return launch(mb_reduce_kernel<kL0, kN>, kRThreads, smem, a.groups, s, a);
 }
 
 }  // namespace
@@ -846,12 +815,12 @@ extern "C" int apst_mb_reduce(const float* col, const float* w, const float* pla
                               int C, int h, int w_, int h2, int w2, const int* fy,
                               const float* ty, const int* fy_new, int ny, const int* fx,
                               const float* tx, const int* fx_new, int nx, int span_y, int span_x,
-                              float* out, int variant, void* stream) {
+                              float* out, void* stream) {
   const long long groups = static_cast<long long>(B) * ((h2 + kRTY - 1) / kRTY) *
                            ((w2 + kRTX - 1) / kRTX);
   const bool level0 = planes == nullptr;
   if (B < 1 || C < 1 || h < 1 || w_ < 1 || h2 < 1 || w2 < 1 || ny < 1 || nx < 1 ||
-      span_y < ny || span_x < nx || span_y > h || span_x > w_ || variant < 0 || variant > 2 ||
+      span_y < ny || span_x < nx || span_y > h || span_x > w_ ||
       groups > 0x7fffffffLL || (level0 && (col == nullptr || w == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = reduce_smem_floats(span_y, span_x, ny, nx) * sizeof(float);
@@ -862,10 +831,8 @@ extern "C" int apst_mb_reduce(const float* col, const float* w, const float* pla
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool fold = ny == kFold && nx == kFold;  // the sliding-window instance
   if (level0)
-    return fold ? launch_reduce<true, kFold>(a, smem, variant, s)
-                : launch_reduce<true, 0>(a, smem, variant, s);
-  return fold ? launch_reduce<false, kFold>(a, smem, variant, s)
-              : launch_reduce<false, 0>(a, smem, variant, s);
+    return fold ? launch_reduce<true, kFold>(a, smem, s) : launch_reduce<true, 0>(a, smem, s);
+  return fold ? launch_reduce<false, kFold>(a, smem, s) : launch_reduce<false, 0>(a, smem, s);
 }
 
 // The whole collapse, one launch: levels 0 .. L - 1 of (B, C) contributors,
@@ -878,11 +845,10 @@ extern "C" int apst_mb_reduce(const float* col, const float* w, const float* pla
 // covered (B, H, W).
 extern "C" int apst_mb_collapse(const float* col, const float* w, int B, int C, int L,
                                 const void* const* ptrs, const int* ints, int kind, float* out,
-                                unsigned char* u8, unsigned char* covered, int variant,
-                                void* stream) {
+                                unsigned char* u8, unsigned char* covered, void* stream) {
   if (B < 1 || C < 1 || L < 1 || L > kMaxLevels || (kind != 1 && kind != 2) ||
       (kind == 1 && out == nullptr) || (kind == 2 && (u8 == nullptr || covered == nullptr)) ||
-      col == nullptr || w == nullptr || variant < 0 || variant > 2)
+      col == nullptr || w == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   CollapseArgs a{};
   a.col = col;
@@ -945,9 +911,5 @@ extern "C" int apst_mb_collapse(const float* col, const float* w, int B, int C, 
   a.o_floats = static_cast<int>(of);
   a.tab_floats = static_cast<int>(tf);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (variant == kLoadsOnly)
-    return launch(mb_collapse_kernel<kLoadsOnly>, kCThreads, smem, a.items, s, a);
-  if (variant == kComputeOnly)
-    return launch(mb_collapse_kernel<kComputeOnly>, kCThreads, smem, a.items, s, a);
-  return launch(mb_collapse_kernel<kWhole>, kCThreads, smem, a.items, s, a);
+  return launch(mb_collapse_kernel, kCThreads, smem, a.items, s, a);
 }

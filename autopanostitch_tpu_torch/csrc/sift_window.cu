@@ -91,7 +91,7 @@
 //   __fmul_rn / __fadd_rn keep the compiler from contracting a product and
 //   a sum the reference rounds apart (u, v, r2, the exp arguments); every
 //   division is the correctly rounded one (`div_rn`, checked bit for bit
-//   against __fdiv_rn by tools/div_rn_probe.cu), the angle's by
+//   against __fdiv_rn on an H100), the angle's by
 //   float32(2 pi); expf / cosf / sinf are the accurate ones; `%` is
 //   Python's (fmodf, plus the divisor when the signs differ); the
 //   descriptor's soft bins are clipped to zero weight at the edges; and

@@ -127,16 +127,14 @@ def _declare(lib):
     lib.apst_orient_hist.restype = I
     lib.apst_sift_descriptor.argtypes = [P, I, I, I, P, P, P, P, P, P, P, I, I, I, I, I, P, P]
     lib.apst_sift_descriptor.restype = I
-    lib.apst_ba_normals.argtypes = [P] * 9 + [I, I, I, ctypes.c_float, I, P, P, P, P]
-    lib.apst_ba_normals.restype = I
     lib.apst_ba_system.argtypes = [P] * 12 + [I, I, I, I, ctypes.c_float, I, P, P, P, P, P]
     lib.apst_ba_system.restype = I
     lib.apst_render_sample.argtypes = ([P, I, I, I, I, I] + [P] * 7 + [I] * 7 + [F] * 3
                                        + [P, F] + [P] * 5)
     lib.apst_render_sample.restype = I
-    lib.apst_mb_reduce.argtypes = [P, P, P] + [I] * 6 + [P, P, P, I] * 2 + [I, I, P, I, P]
+    lib.apst_mb_reduce.argtypes = [P, P, P] + [I] * 6 + [P, P, P, I] * 2 + [I, I, P, P]
     lib.apst_mb_reduce.restype = I
-    lib.apst_mb_collapse.argtypes = [P, P, I, I, I, P, P, I, P, P, P, I, P]
+    lib.apst_mb_collapse.argtypes = [P, P, I, I, I, P, P, I, P, P, P, P]
     lib.apst_mb_collapse.restype = I
     lib.apst_upsample2x.argtypes = [P, I, I, I, P, P, I, P, P, I, P, P]
     lib.apst_upsample2x.restype = I

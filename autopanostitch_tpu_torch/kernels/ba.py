@@ -1,11 +1,11 @@
-"""The rotational bundle adjustment's linearisation — CUDA kernel wrappers
+"""The rotational bundle adjustment's linearisation — CUDA kernel wrapper
 and plain versions.
 
 `ba_system` (the main path) computes what the JAX package's
 `build_normal_eqns` (`autopanostitch_tpu/models/bundle.py:715`) computes:
 the dense, undamped normal equations H (pd nb x pd nb), g (pd nb) and the
-robust cost of one LM iteration. `ba_normals` computes its per-pair part,
-`pair_system` (:682), which the JAX package leaves to XLA (no Pallas
+robust cost of one LM iteration. `ba_normals_plain` computes its per-pair
+part, `pair_system` (:682), which the JAX package leaves to XLA (no Pallas
 kernel): for each pair of an LM phase, over its M matches, the
 bidirectional residual r (4), its Jacobian J (4 x 2pd) against [theta_i,
 f_i(, k1_i), theta_j, f_j(, k1_j)] at theta = 0, the Huber IRLS weights,
@@ -21,19 +21,17 @@ clamp is 0, as autodiff gives it. `pair_residual_jac` is that closed form;
 the tests hold it against `torch.func.jacrev` of the residual written as the
 reference writes it.
 
-Kernels: `csrc/ba_system.cu` (per-chunk sums over each pair's real matches,
+Kernel: `csrc/ba_system.cu` (per-chunk sums over each pair's real matches,
 then the dense system assembled from each camera's incidence list; no float
-atomics: a repeat launch is bit-identical) and, off the main path as its
-yardstick, `csrc/ba_normals.cu` (one block a pair). CUDA tensors launch
-them or raise; CPU tensors take `ba_system_plain` / `ba_normals_plain`.
-`ba_system_plain` is `ba_normals_plain` followed by `assemble_plain`, the
-one-hot einsum assembly that the LM used before `ba_system`.
+atomics: a repeat launch is bit-identical). CUDA tensors launch it or
+raise; CPU tensors take `ba_system_plain`, which is `ba_normals_plain`
+followed by `assemble_plain`, the one-hot einsum assembly that the LM used
+before `ba_system`.
 
-Launch counting: `launches` counts `ba_system`'s runs on the device. A
-launch recorded into a CUDA graph being captured is counted in `captured`
-instead; the graph's owner (`models/bundle._PhaseGraph`) adds the launches
-it recorded to `launches` at each replay, when they run. `normals_launches`
-counts `ba_normals`' eager launches.
+Launch counting (`trace.launched`): `ba_system`'s runs on the device. A
+launch recorded into a CUDA graph being captured is tallied as captured;
+the graph's owner (`models/bundle._PhaseGraph`) adds the launches it
+recorded at each replay, when they run.
 """
 
 from __future__ import annotations
@@ -43,10 +41,9 @@ import ctypes
 import torch
 
 from autopanostitch_tpu_torch.kernels import _build
+from autopanostitch_tpu_torch.utils import trace
 
-launches = 0  # ba_system runs: eager launches plus those replayed by CUDA graphs
-captured = 0  # ba_system launches recorded into CUDA graphs while they were captured
-normals_launches = 0  # ba_normals' eager launches
+trace.declare_kernels("ba_system")
 
 
 def huber_w(r2, sigma: float):
@@ -121,30 +118,30 @@ def pair_residual_jac(Rb_i, Rb_j, f_i, f_j, k1_i, k1_j, cx_i, cy_i, cx_j, cy_j, 
     return torch.cat([r_ij, r_ji], -1), J, torch.stack([z_j, z_i], -1)
 
 
-def _check(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd: int, name: str = "ba_normals"):
+def _check(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd: int):
     nb = Rb.shape[0]
     pb, M = w.shape
     if pd not in (4, 5):
-        raise ValueError(f"{name}: pd must be 4 or 5, got {pd}")
+        raise ValueError(f"ba_system: pd must be 4 or 5, got {pd}")
     if Rb.shape != (nb, 3, 3) or any(t.shape != (nb,) for t in (f, k1, cx, cy)):
-        raise ValueError(f"{name}: Rb must be (nb, 3, 3) and f, k1, cx, cy (nb,)")
+        raise ValueError("ba_system: Rb must be (nb, 3, 3) and f, k1, cx, cy (nb,)")
     if u_i.shape != (pb, M, 2) or u_j.shape != (pb, M, 2) or pij.shape != (pb, 2):
-        raise ValueError(f"{name}: u_i, u_j must be (pb, M, 2), w (pb, M), pij (pb, 2)")
+        raise ValueError("ba_system: u_i, u_j must be (pb, M, 2), w (pb, M), pij (pb, 2)")
     for t in (Rb, f, k1, cx, cy, u_i, u_j, w):
         if t.dtype != w.dtype or t.device != w.device:
-            raise ValueError(f"{name}: float inputs must share one dtype and device")
+            raise ValueError("ba_system: float inputs must share one dtype and device")
     if w.dtype != torch.float32 and not (w.dtype == torch.float64 and w.device.type == "cpu"):
-        raise ValueError(f"{name}: float inputs must be float32 (or float64 on the CPU)")
+        raise ValueError("ba_system: float inputs must be float32 (or float64 on the CPU)")
     if pij.dtype != torch.int64 or pij.device != w.device:
-        raise ValueError(f"{name}: pij must be int64 on the inputs' device")
+        raise ValueError("ba_system: pij must be int64 on the inputs' device")
 
 
 def ba_normals_plain(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd: int, sigma: float,
                      one_direction: bool):
-    """Plain PyTorch version. Rb (nb, 3, 3), f/k1/cx/cy (nb,) of the
-    phase's cameras; u_i/u_j (pb, M, 2), w (pb, M) (0 for padding) and the
-    compact camera indices pij (pb, 2) of its pairs. Returns JtJ (pb, 2pd,
-    2pd), Jtg (pb, 2pd), cost (pb,)."""
+    """The per-pair normal equations of one LM phase. Rb (nb, 3, 3),
+    f/k1/cx/cy (nb,) of the phase's cameras; u_i/u_j (pb, M, 2), w (pb, M)
+    (0 for padding) and the compact camera indices pij (pb, 2) of its pairs.
+    Returns JtJ (pb, 2pd, 2pd), Jtg (pb, 2pd), cost (pb,)."""
     ii, jj = pij[:, 0], pij[:, 1]
 
     def cam(t, idx):
@@ -163,36 +160,6 @@ def ba_normals_plain(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd: int, sigma: float,
     JtJ = torch.einsum("pmab,pmac->pbc", Jw, J)
     Jtg = torch.einsum("pmab,pma->pb", Jw, r)
     return JtJ, Jtg, (w4 * r * r).sum((1, 2))
-
-
-def ba_normals(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd: int, sigma: float,
-               one_direction: bool):
-    """Per-pair normal equations of one LM phase (see `ba_normals_plain`);
-    off the main path since `ba_system`, its yardstick with `assemble_plain`.
-    CUDA tensors (float32) launch `csrc/ba_normals.cu`, CPU tensors
-    (float32 or float64) take the plain version. pij must index cameras < nb (not checked on the card: that
-    would need a host sync)."""
-    global normals_launches
-    _check(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd)
-    if w.device.type == "cpu":
-        return ba_normals_plain(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd, sigma, one_direction)
-    if w.device.type != "cuda":
-        raise ValueError(f"ba_normals: unsupported device {w.device}")
-    ins = [t.contiguous() for t in (Rb, f, k1, cx, cy, u_i, u_j, w, pij)]
-    pb, M = w.shape
-    JtJ = torch.empty((pb, 2 * pd, 2 * pd), dtype=torch.float32, device=w.device)
-    Jtg = torch.empty((pb, 2 * pd), dtype=torch.float32, device=w.device)
-    cost = torch.empty((pb,), dtype=torch.float32, device=w.device)
-    if pb == 0:
-        return JtJ, Jtg, cost
-    stream = torch.cuda.current_stream(w.device).cuda_stream
-    err = _build.library().apst_ba_normals(
-        *(t.data_ptr() for t in ins), pb, M, pd, ctypes.c_float(sigma), int(one_direction),
-        JtJ.data_ptr(), Jtg.data_ptr(), cost.data_ptr(), stream)
-    _build.check(err, "apst_ba_normals")
-    if not torch.cuda.is_current_stream_capturing():
-        normals_launches += 1
-    return JtJ, Jtg, cost
 
 
 def camera_map(pij, nb: int, dtype):
@@ -245,8 +212,7 @@ def ba_system(Rb, f, k1, cx, cy, u_i, u_j, w, pij, ext, inc_off, inc, pd: int, s
     `csrc/ba_system.cu`, CPU tensors (float32 or float64) take the plain
     version. pij and the lists must index cameras < nb and pairs < pb (not
     checked on the card: that would need a host sync). Returns H, g, cost."""
-    global launches, captured
-    _check(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd, "ba_system")
+    _check(Rb, f, k1, cx, cy, u_i, u_j, w, pij, pd)
     _check_lists(Rb, w, ext, inc_off, inc)
     if w.device.type == "cpu":
         return ba_system_plain(Rb, f, k1, cx, cy, u_i, u_j, w, pij, ext, inc_off, inc, pd, sigma,
@@ -268,8 +234,5 @@ def ba_system(Rb, f, k1, cx, cy, u_i, u_j, w, pij, ext, inc_off, inc, pd: int, s
         *(t.data_ptr() for t in ins), nb, pb, M, pd, ctypes.c_float(sigma), int(one_direction),
         rec.data_ptr(), H.data_ptr(), g.data_ptr(), cost.data_ptr(), stream)
     _build.check(err, "apst_ba_system")
-    if torch.cuda.is_current_stream_capturing():
-        captured += 1
-    else:
-        launches += 1
+    trace.launched("ba_system", captured=torch.cuda.is_current_stream_capturing())
     return H, g, cost

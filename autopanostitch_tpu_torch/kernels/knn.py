@@ -46,15 +46,14 @@ from __future__ import annotations
 import torch
 
 from autopanostitch_tpu_torch.kernels import _build
+from autopanostitch_tpu_torch.utils import trace
 
 BIG = 1e18
 COMPUTE_DTYPES = ("float32", "bfloat16")
 MAX_K = 16  # largest k of the pooled kernel (its K = 16 instance)
 POOLED_K = (2, 4, 8, MAX_K)  # the pooled kernel's instances
-launches = 0  # number of CUDA kernel launches through `knn`
-pair_launches = 0  # number of CUDA kernel launches through `knn_pairs`
-bf16_launches = 0  # of `launches`, those of the bf16 instance
-bf16_pair_launches = 0  # of `pair_launches`, those of the bf16 instance
+# launches of `knn` and `knn_pairs`, and of each, those of the bf16 instance
+trace.declare_kernels("knn", "knn_pairs", "knn_bf16", "knn_pairs_bf16")
 _PLAIN_CHUNK_BYTES = 1 << 30  # bound of the plain pair-list version's working set
 
 
@@ -131,7 +130,6 @@ def knn_plain(desc_q, qid, desc_t, tid, k: int, self_idx=None, block: int = 1024
 
 
 def _knn_cuda(desc_q, qid, desc_t, tid, k, self_idx, compute_dtype):
-    global launches, bf16_launches
     lib = _build.library()
     same = desc_t is desc_q  # the kernel then computes the norms once
     desc_q = pad_width(desc_q)
@@ -156,8 +154,9 @@ def _knn_cuda(desc_q, qid, desc_t, tid, k, self_idx, compute_dtype):
         qn.data_ptr(), tn.data_ptr(), idx.data_ptr(), dist.data_ptr(), stream,
     )
     _build.check(err, "apst_knn")
-    launches += 1
-    bf16_launches += bf
+    trace.launched("knn")
+    if bf:
+        trace.launched("knn_bf16")
     if K != k:
         idx, dist = idx[:, :k].contiguous(), dist[:, :k].contiguous()
     return idx, dist
@@ -243,7 +242,6 @@ def knn_pairs_plain(desc, valid, pairs, k: int = 2, compute_dtype: str = "float3
 
 
 def _knn_pairs_cuda(desc, valid, pairs, k, compute_dtype):
-    global pair_launches, bf16_pair_launches
     lib = _build.library()
     desc = pad_width(desc)
     N, Kc, D = desc.shape
@@ -262,8 +260,9 @@ def _knn_pairs_cuda(desc, valid, pairs, k, compute_dtype):
         stream,
     )
     _build.check(err, "apst_knn_pairs")
-    pair_launches += 1
-    bf16_pair_launches += bf
+    trace.launched("knn_pairs")
+    if bf:
+        trace.launched("knn_pairs_bf16")
     if k != 2:
         idx, dist = idx[..., :k].contiguous(), dist[..., :k].contiguous()
     return idx, dist

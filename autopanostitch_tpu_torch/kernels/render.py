@@ -34,13 +34,13 @@ tensors launch them or raise; CPU tensors take the plain versions
 `ops/projections`', written to round on the card as the kernel does
 (`render.cu` is compiled without FMA contraction; the pyramid's source is
 not, and its plain versions are held within 1e-5). This module imports only the leaf modules
-`ops/projections` and `ops/sampling`, which import nothing of the package,
-so the kernel and ops layers never import each other in a cycle.
+`ops/projections`, `ops/sampling` and `utils/trace`, which import nothing of
+the package, so the kernel and ops layers never import each other in a
+cycle.
 
-Launch counting: `sample_launches`, `reduce_launches`, `collapse_launches`
-and `upsample_launches` count the kernels' launches (`reduce_launch` and
-`collapse_launch` launch uncounted, for the probe's variants);
-`plain_on_cuda` counts the plain versions' calls on CUDA tensors (a
+Launch counting (`trace.launched`): `render_sample`, `mb_reduce` (one a
+level), `mb_collapse` and `upsample2x` count the kernels' launches;
+`render_plain_on_cuda` the plain versions' calls on CUDA tensors (a
 comparison's, never the main path's).
 """
 
@@ -57,12 +57,10 @@ import torch
 from autopanostitch_tpu_torch.kernels import _build
 from autopanostitch_tpu_torch.ops import projections as proj  # leaf modules: they import
 from autopanostitch_tpu_torch.ops import sampling as samp  # nothing of the package
+from autopanostitch_tpu_torch.utils import trace
 
-sample_launches = 0
-reduce_launches = 0
-collapse_launches = 0
-upsample_launches = 0
-plain_on_cuda = 0  # plain-version calls on CUDA tensors
+trace.declare_kernels("render_sample", "mb_reduce", "mb_collapse", "upsample2x",
+                      "render_plain_on_cuda")
 
 MODES = {"cylindrical": 0, "spherical": 1, "equirectangular": 1, "planar": 2, "perspective": 2,
          "stereographic": 3}
@@ -80,9 +78,8 @@ def _device(x, name: str) -> bool:
 
 
 def _count_plain(x) -> None:
-    global plain_on_cuda
     if x.device.type == "cuda":
-        plain_on_cuda += 1
+        trace.launched("render_plain_on_cuda")
 
 
 # ------------------------------------------------------------------ sampler
@@ -189,7 +186,6 @@ def render_sample(images4, fine4, R, K, gains, k1, sel, sel_ok, origins, canvas:
     f_pan, x0, y0, R_ref (`models.render.compute_canvas`). Returns multiband:
     (col (T, C, th, tw, 3), w (T, C, th, tw)); else (uint8 (T, th, tw, 3),
     covered (T, th, tw) bool)."""
-    global sample_launches
     _check_sample(images4, fine4, R, K, gains, k1, sel, sel_ok, origins, canvas, tile_h, tile_w,
                   blend_mode, interp)
     args = (images4, fine4, R, K, gains, k1, sel, sel_ok, origins, canvas, tile_h, tile_w,
@@ -223,7 +219,7 @@ def render_sample(images4, fine4, R, K, gains, k1, sel, sel_ok, origins, canvas:
         float(canvas["y0"]), ctypes.cast(r_ref, ctypes.c_void_p), float(angle_power), *ptrs,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "apst_render_sample")
-    sample_launches += 1
+    trace.launched("render_sample")
     return outs
 
 
@@ -253,7 +249,6 @@ def upsample2x(images4):
     """bicubic2x's 2x Keys upsample (a = -0.5, `jax.image.resize(...,
     "cubic")`) of the (N, H, W, 4) float32 RGB + feather stack: (N, 2H,
     2W, 4), contiguous, as `render_sample` gathers whole pixels from it."""
-    global upsample_launches
     if images4.ndim != 4 or images4.shape[-1] != 4 or images4.dtype != torch.float32:
         raise ValueError("upsample2x: images4 must be (N, H, W, 4) float32")
     if _device(images4, "upsample2x"):
@@ -271,7 +266,7 @@ def upsample2x(images4):
         src.data_ptr(), N, H, W, fy.data_ptr(), ty.data_ptr(), ny, fx.data_ptr(), tx.data_ptr(),
         nx, out.data_ptr(), torch.cuda.current_stream(src.device).cuda_stream)
     _build.check(err, "apst_upsample2x")
-    upsample_launches += 1
+    trace.launched("upsample2x")
     return out
 
 
@@ -473,10 +468,13 @@ def _check_mb(colors, weights, name: str):
         raise ValueError(f"{name}: colors and weights must be float32 on one device")
 
 
-def reduce_launch(colors, weights, plan: PyramidPlan, variant: int = 0):
-    """`mb_reduce` on CUDA tensors, uncounted: one `apst_mb_reduce` launch a
-    level. variant 0 is the kernel; 1 (its loads only) and 2 (its arithmetic
-    only) are `tools/pyramid_probe.py`'s, whose levels hold no result."""
+def mb_reduce(colors, weights, plan: PyramidPlan):
+    """The Gaussian levels 1 .. bands - 1 of a multiband blend, each (..., C,
+    4, h, w): R, G, B and the normalised weight, blurred and halved level by
+    level (colors (..., C, H, W, 3), weights (..., C, H, W) float32)."""
+    _check_mb(colors, weights, "mb_reduce")
+    if _device(colors, "mb_reduce"):
+        return mb_reduce_plain(colors, weights, plan)
     lead = colors.shape[:-4]
     C, H, W = colors.shape[-4:-1]
     B = math.prod(lead)
@@ -489,30 +487,22 @@ def reduce_launch(colors, weights, plan: PyramidPlan, variant: int = 0):
             None if src is not None else col.data_ptr(), None if src is not None else w.data_ptr(),
             None if src is None else src.data_ptr(), B, C, h, w_, h2, w2,
             *(t.data_ptr() for t in lv.y[:3]), lv.y[3], *(t.data_ptr() for t in lv.x[:3]),
-            lv.x[3], *lv.span, out.data_ptr(), variant, stream)
+            lv.x[3], *lv.span, out.data_ptr(), stream)
         _build.check(err, "apst_mb_reduce")
         levels.append(out)
         src = out
+    trace.launched("mb_reduce", len(levels))
     return levels
 
 
-def mb_reduce(colors, weights, plan: PyramidPlan):
-    """The Gaussian levels 1 .. bands - 1 of a multiband blend, each (..., C,
-    4, h, w): R, G, B and the normalised weight, blurred and halved level by
-    level (colors (..., C, H, W, 3), weights (..., C, H, W) float32)."""
-    global reduce_launches
-    _check_mb(colors, weights, "mb_reduce")
-    if _device(colors, "mb_reduce"):
-        return mb_reduce_plain(colors, weights, plan)
-    levels = reduce_launch(colors, weights, plan)
-    reduce_launches += len(levels)
-    return levels
-
-
-def collapse_launch(colors, weights, levels, plan: PyramidPlan, to_u8: bool = False,
-                    variant: int = 0):
-    """`mb_collapse` on CUDA tensors, uncounted: one `apst_mb_collapse`
-    launch for every level (variant as `reduce_launch`'s)."""
+def mb_collapse(colors, weights, levels, plan: PyramidPlan, to_u8: bool = False):
+    """Blend and collapse the pyramid (`mb_reduce`'s levels above the inputs'
+    own): the float blend (..., H, W, 3), or with to_u8 the renderer's uint8
+    tile (..., H, W, 3) and coverage (..., H, W) (`to_uint8`): one launch
+    for all levels."""
+    _check_mb(colors, weights, "mb_collapse")
+    if _device(colors, "mb_collapse"):
+        return mb_collapse_plain(colors, weights, levels, plan, to_u8)
     dev = colors.device
     lead = colors.shape[:-4]
     C, H, W = colors.shape[-4:-1]
@@ -540,22 +530,10 @@ def collapse_launch(colors, weights, levels, plan: PyramidPlan, to_u8: bool = Fa
         col.data_ptr(), w.data_ptr(), math.prod(lead), C, plan.bands,
         ctypes.cast((ctypes.c_void_p * len(ptrs))(*ptrs), ctypes.c_void_p),
         ctypes.cast((ctypes.c_int * len(ints))(*ints), ctypes.c_void_p), kind, *outs,
-        variant, torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "apst_mb_collapse")
+    trace.launched("mb_collapse")
     return (u8, covered) if to_u8 else out
-
-
-def mb_collapse(colors, weights, levels, plan: PyramidPlan, to_u8: bool = False):
-    """Blend and collapse the pyramid (`mb_reduce`'s levels above the inputs'
-    own): the float blend (..., H, W, 3), or with to_u8 the renderer's uint8
-    tile (..., H, W, 3) and coverage (..., H, W) (`to_uint8`)."""
-    global collapse_launches
-    _check_mb(colors, weights, "mb_collapse")
-    if _device(colors, "mb_collapse"):
-        return mb_collapse_plain(colors, weights, levels, plan, to_u8)
-    out = collapse_launch(colors, weights, levels, plan, to_u8)
-    collapse_launches += 1
-    return out
 
 
 def multiband_plain(colors, weights, bands: int = 3, sigma: float = 1.0, to_u8: bool = False):

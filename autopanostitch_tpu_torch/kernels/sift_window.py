@@ -25,6 +25,7 @@ import torch
 
 from autopanostitch_tpu_torch.kernels import _build
 from autopanostitch_tpu_torch.kernels.window_gather import gather_windows_plain
+from autopanostitch_tpu_torch.utils import trace
 
 ORI_BINS = 36
 _ORI_SIGMA_FACTOR = 1.5
@@ -32,8 +33,7 @@ _ORI_RADIUS_FACTOR = 3.0
 _DESC_SCALE_FACTOR = 3.0
 _DESC_MAG_CLIP = 0.2
 
-orient_launches = 0  # CUDA launches through `orient_hist`
-descriptor_launches = 0  # CUDA launches through `descriptor`
+trace.declare_kernels("orient_hist", "descriptor")
 
 
 def _bf16(x):
@@ -243,7 +243,6 @@ def orient_hist(src, lev, ys, xs, lx, ly, sigma_rel, win: int, chunk: int = 256)
     every window inside src; lx/ly/sigma_rel (K,) float32. CUDA tensors
     launch the kernel, CPU tensors take the plain version (`chunk` windows
     at a time)."""
-    global orient_launches
     if _check("orient_hist", src, lev, ys, xs, win, (lx, ly, sigma_rel)):
         return orient_hist_plain(src, lev, ys, xs, lx, ly, sigma_rel, win, chunk)
     K = lev.shape[0]
@@ -258,7 +257,7 @@ def orient_hist(src, lev, ys, xs, lx, ly, sigma_rel, win: int, chunk: int = 256)
         out.data_ptr(), torch.cuda.current_stream(src.device).cuda_stream,
     )
     _build.check(err, "apst_orient_hist")
-    orient_launches += 1
+    trace.launched("orient_hist")
     return out
 
 
@@ -268,7 +267,6 @@ def descriptor(src, lev, ys, xs, lx, ly, sigma_rel, theta, win: int, d: int = 4,
     renormalised) of the keypoints' windows, keypoint k at (lx[k], ly[k])
     with scale sigma_rel[k] and orientation theta[k]. Inputs as
     `orient_hist`; the kernel takes the grids of `check_grid`."""
-    global descriptor_launches
     if _check("descriptor", src, lev, ys, xs, win, (lx, ly, sigma_rel, theta)):
         return descriptor_plain(src, lev, ys, xs, lx, ly, sigma_rel, theta, win, d, nbins, chunk)
     check_grid(d, nbins)
@@ -285,5 +283,5 @@ def descriptor(src, lev, ys, xs, lx, ly, sigma_rel, theta, win: int, d: int = 4,
         torch.cuda.current_stream(src.device).cuda_stream,
     )
     _build.check(err, "apst_sift_descriptor")
-    descriptor_launches += 1
+    trace.launched("descriptor")
     return out

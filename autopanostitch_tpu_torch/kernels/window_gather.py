@@ -11,8 +11,9 @@ from __future__ import annotations
 import torch
 
 from autopanostitch_tpu_torch.kernels import _build
+from autopanostitch_tpu_torch.utils import trace
 
-launches = 0  # number of CUDA kernel launches through `gather_windows`
+trace.declare_kernels("window_gather")
 
 
 def gather_windows_plain(src, lev, ys, xs, rows: int, cols: int):
@@ -32,7 +33,6 @@ def gather_windows(src, lev, ys, xs, rows: int, cols: int):
     src (S, H, W, 2) float32 contiguous; lev/ys/xs (K,) int32 with windows
     inside the source (callers clip the starts). CUDA tensors launch the
     kernel, CPU tensors take the plain version."""
-    global launches
     if src.ndim != 4 or src.shape[-1] != 2 or src.dtype != torch.float32:
         raise ValueError(f"gather_windows: src must be (S, H, W, 2) float32, got "
                          f"{tuple(src.shape)} {src.dtype}")
@@ -60,5 +60,5 @@ def gather_windows(src, lev, ys, xs, rows: int, cols: int):
         K, rows, cols, out.data_ptr(), stream,
     )
     _build.check(err, "apst_gather_windows")
-    launches += 1
+    trace.launched("window_gather")
     return out

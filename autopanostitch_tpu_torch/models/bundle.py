@@ -543,12 +543,15 @@ class _PhaseGraph:
                 run(self.inputs)
             torch.cuda.current_stream(dev).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            before = kba.captured
+            before = trace.launch_counts(captured=True)
             # thread_local: a collective library's watchdog thread (NCCL
             # under `parallel/`) may query events while this thread captures
             with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
                 self.outputs = run(self.inputs)
-            self.launches = kba.captured - before
+            # the kernel launches the graph holds, which each replay runs again
+            self.launches = {k: n - before.get(k, 0)
+                             for k, n in trace.launch_counts(captured=True).items()
+                             if n != before.get(k, 0)}
         global graph_captures
         graph_captures += 1
         trace.count("ba.graph_captures")
@@ -558,7 +561,8 @@ class _PhaseGraph:
         for k, v in inp.items():
             self.inputs[k].copy_(v)
         self.graph.replay()
-        kba.launches += self.launches  # the ba_system launches the graph holds ran again
+        for name, n in self.launches.items():
+            trace.launched(name, n)
         graph_replays += 1
         trace.count("ba.graph_replays")
         return self.outputs

@@ -1,7 +1,7 @@
 """Synthetic inputs of the bundle adjustments (host numpy): a yaw ring of
 cameras with noisy matches between neighbours, and a perturbed starting
 state, for the rotational BA (`tests/test_torch_ba_normals.py` and
-`tools/ba_probe.py` build their phases from these); a planar grid scan for
+`tests/test_torch_ba_system.py` build their phases from these); a planar grid scan for
 the homography BA (`models/bundle_h.py`)."""
 
 from __future__ import annotations

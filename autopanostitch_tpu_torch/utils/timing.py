@@ -10,7 +10,7 @@
   process began (or the last reset) and its capacity.
 - `graph_ms`, `launch_floor_ms`: a call's device time from a CUDA graph of
   back-to-back calls, and an empty kernel's (the launch floor), for
-  `chip_smoke.py` and `tools/ba_probe.py`.
+  `chip_smoke.py`.
 
 The per-stage timer is `models/pipeline.StageTimer`, on the tracer's stage
 spans: on a card a stage's seconds are the stream time between CUDA events

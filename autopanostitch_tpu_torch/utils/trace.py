@@ -23,6 +23,15 @@ where it leaves, and its seconds are the stream time between the two,
 resolved when read (`Span.seconds`); elsewhere host seconds. No other span
 records an event, and no span synchronises the device.
 
+The tracer also keeps the process's one tally of kernel launches by
+kernel name: each kernel wrapper adds its launches (`launched`), each
+kernel module names its kernels at import (`declare_kernels`), so that a
+read (`launch_counts`) lists every kernel, launched or not. A launch
+recorded into a CUDA graph being captured is tallied apart, as captured
+(it runs only when the graph replays, and the graph's owner adds it then).
+A recorded stitch's root span gets a `launches.<name>` counter for each
+kernel that launched while it ran.
+
 `summary` and `format_table` give, for each span name, its count, total,
 self time (its duration less what its children cover), the device's idle
 time inside it and the host calls inside it that wait for the device
@@ -49,6 +58,8 @@ _subscribers: List[Callable] = []
 _lock = threading.Lock()
 _local = threading.local()  # .rec: this thread's open Stitch, or absent
 _ids = itertools.count(1)
+_launches: Dict[str, int] = {}  # kernel name -> launches that ran on the device
+_captured: Dict[str, int] = {}  # kernel name -> launches recorded into graphs being captured
 
 
 class _Null:
@@ -193,6 +204,36 @@ def tag(**tags) -> None:
         rec.stack[-1].tags.update(tags)
 
 
+def declare_kernels(*names: str) -> None:
+    """Enter kernels in the launch tally at 0."""
+    with _lock:
+        for name in names:
+            _launches.setdefault(name, 0)
+
+
+def launched(name: str, n: int = 1, captured: bool = False) -> None:
+    """Add n launches of the kernel `name` to the tally; `captured` ones
+    were recorded into a CUDA graph being captured and have not run."""
+    tally = _captured if captured else _launches
+    with _lock:
+        tally[name] = tally.get(name, 0) + n
+
+
+def launch_counts(captured: bool = False) -> Dict[str, int]:
+    """Launches of each kernel since the last reset (with `captured`, those
+    recorded into CUDA graphs being captured)."""
+    with _lock:
+        return dict(_captured if captured else _launches)
+
+
+def reset_launch_counts() -> None:
+    """Zero the tally, keeping every kernel's name."""
+    with _lock:
+        for name in _launches:
+            _launches[name] = 0
+        _captured.clear()
+
+
 class _Stage:
     """`stage`'s context: a span that exists also where nothing records (a
     timed stitch that nobody subscribed to, a timer's block outside a
@@ -241,22 +282,18 @@ class _Root:
 
     def __enter__(self) -> Stitch:
         global _live
-        from autopanostitch_tpu_torch import kernels
-
         self.prev = getattr(_local, "rec", None)
         _local.rec = self.rec
         with _lock:
             _live += 1
-        self.launches = kernels.launch_counts()
+        self.launches = launch_counts()
         self.ctx.__enter__()
         return self.rec
 
     def __exit__(self, exc_type, *exc):
         global _live
-        from autopanostitch_tpu_torch import kernels
-
         root = self.rec.root
-        for k, v in kernels.launch_counts().items():
+        for k, v in launch_counts().items():
             if v != self.launches.get(k, 0):
                 root.counters["launches." + k] = v - self.launches.get(k, 0)
         if exc_type is not None:

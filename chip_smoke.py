@@ -82,19 +82,17 @@ Phases, each printing its own lines:
      the JAX package's CPU result less 3 dB (JAX_PANO100), the stage split;
   9b. the bundle adjustment of phases 5 and 9 again from their recorded
      inputs: the `ba_system` kernel (csrc/ba_system.cu, the LM's whole
-     linearisation: the dense H, g and cost) and, off the main path, the
-     `ba_normals` kernel (csrc/ba_normals.cu, per-pair blocks) against their
-     plain versions at each one's largest LM phase (the ring: nb 64, pb 64,
-     M 300; pano100: nb 128, pb 128, M 256; pd 5), each entry's difference
-     over its Cauchy-Schwarz scale: to the plain version run in float64 no
-     larger than twice the float32 plain version's own (or 1e-5; at a
-     converged state the residuals are small differences of pixel
-     coordinates, and float32 alone errs by ~1e-5 of the cost there), a
-     repeat launch bit-identical; `ba_system`, the per-pair linearisation
-     (`ba_normals` + one-hot einsums + the cost's sum) and `ba_normals`
-     timed on the device, each a launch from a CUDA graph of 20, beside an
-     empty kernel's (the launch floor) and the bound (the larger of float32
-     operations at 67 TFLOP/s and bytes; no PyTorch call computes it); then
+     linearisation: the dense H, g and cost) against its plain version at
+     each one's largest LM phase (the ring: nb 64, pb 64, M 300; pano100:
+     nb 128, pb 128, M 256; pd 5), each entry's difference over its
+     Cauchy-Schwarz scale: to the plain version run in float64 no larger
+     than twice the float32 plain version's own (or 1e-5; at a converged
+     state the residuals are small differences of pixel coordinates, and
+     float32 alone errs by ~1e-5 of the cost there), a repeat launch
+     bit-identical; `ba_system` timed on the device, a launch from a CUDA
+     graph of 20, beside an empty kernel's (the launch floor) and the bound
+     (the larger of float32 operations at 67 TFLOP/s and bytes; no PyTorch
+     call computes it); then
      each whole BA run eagerly and replayed from the cached CUDA graphs of
      its LM phases: R, f, k1 and cost bit-identical to each other and to the
      stitch's own;
@@ -132,9 +130,10 @@ Phases, each printing its own lines:
      reduce beside a depthwise `F.conv2d` blur with the resize products)
      and its bound at the ring's and the folder's whole canvases, and the
      pyramid at the planar band.
-Phases 5-11 each count the kernels' launches from 0 and fail if a kernel of
-the path never launched (in 11b on either rank) or if `ba_normals`, off the
-main path, did, or if a plain version of a render kernel ran on the card;
+Phases 5-11 each count the kernels' launches from 0 (the tracer's tally,
+`utils/trace.launch_counts`) and fail if a kernel of the path never
+launched (in 11b on either rank) or if a plain version of a render kernel
+ran on the card;
 every rotational stitch must launch the render kernels (`render_sample`,
 `mb_reduce`, `mb_collapse`) and prints its render stage seconds and their
 launches; every rotational stitch must launch `ba_system` (its count
@@ -148,8 +147,7 @@ same scenes (on a CPU) less 3 dB: the lowest of 49.74 / 50.50 dB spherical
 and 49.81 / 50.36 dB cylindrical (JAX_MULTIPANO_PSNR), and 57.08 dB planar
 (JAX_PLANAR_PSNR). That planar record was read against a bilinear ground
 truth; the gate reads the bicubic one, which is what the phase-free
-comparison measures (`autopanostitch_tpu_torch/tools/planar_probe.py`
-splits the two on the card).
+comparison measures.
 """
 
 from __future__ import annotations
@@ -177,8 +175,8 @@ TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
-# ba_normals / ba_system: float32 operations a match as `csrc/ba_direction.cuh`
-# and `csrc/ba_normals.cu` write them
+# ba_system: float32 operations a match as `csrc/ba_direction.cuh` and
+# `csrc/ba_system.cu`'s per-pair sums write them
 # (an FMA counts 2), by pd: both directions' residual and closed-form
 # Jacobian (180 / 134 each), the weights (21) and the sums into JtJ's upper
 # triangle, Jtg and the cost (572 / 396)
@@ -698,12 +696,13 @@ def phase_b2(dev, G: int, S3: int, H: int, W: int):
     import torch
 
     from autopanostitch_tpu_torch.kernels import window_gather as WG
+    from autopanostitch_tpu_torch.utils import trace
 
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     src = torch.randn((G * S3, H, W, 2), generator=g, device=dev)
     rec = {}
-    launches0 = WG.launches
+    launches0 = trace.launch_counts()["window_gather"]
     K = 1024  # the chunk of the unfused path
     for win in (40, 80):
         lev = torch.randint(0, G * S3, (K,), generator=g, device=dev, dtype=torch.int32)
@@ -731,7 +730,7 @@ def phase_b2(dev, G: int, S3: int, H: int, W: int):
         rec[win] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
                         bound_by=by)
     del src
-    rec["launches"] = WG.launches - launches0
+    rec["launches"] = trace.launch_counts()["window_gather"] - launches0
     return rec
 
 
@@ -1269,9 +1268,9 @@ def features_split(images, sizes, dev, reps: int = 3) -> dict:
     launches of one run."""
     import torch
 
-    from autopanostitch_tpu_torch import kernels
     from autopanostitch_tpu_torch.config import DetectorConfig
     from autopanostitch_tpu_torch.models import features
+    from autopanostitch_tpu_torch.utils import trace
 
     imgs = torch.as_tensor(images, device=dev)
 
@@ -1288,10 +1287,10 @@ def features_split(images, sizes, dev, reps: int = 3) -> dict:
     for _ in range(reps):
         spent = {}
         with phase_timers(dev, spent):
-            kernels.reset_launch_counts()
+            trace.reset_launch_counts()
             total = run()
         splits.append(dict(total=total, **spent))
-    counts = {k: v for k, v in kernels.launch_counts().items() if not k.startswith("knn")}
+    counts = {k: v for k, v in trace.launch_counts().items() if not k.startswith("knn")}
     med = {k: float(np.median([s[k] for s in splits])) for k in splits[0]}
     return dict(features=float(np.median(walls)), orientation=med["orientation"],
                 descriptor=med["descriptor"],
@@ -1302,12 +1301,13 @@ def run_stitch(label: str, iset, cfg, dev, mesh=None):
     """`api.stitch` (with a mesh `api.stitch_multichip`) with the kernels'
     launch counts taken from 0; prints the stage times and counts. Returns
     (result, counts)."""
-    from autopanostitch_tpu_torch import api, kernels
+    from autopanostitch_tpu_torch import api
     from autopanostitch_tpu_torch.models import bundle
     from autopanostitch_tpu_torch.models.pipeline import StageTimer
+    from autopanostitch_tpu_torch.utils import trace
 
     timer = StageTimer(dev)
-    kernels.reset_launch_counts()
+    trace.reset_launch_counts()
     bundle.graph_captures = bundle.graph_replays = 0
     t0 = time.perf_counter()
     if mesh is None:
@@ -1315,7 +1315,7 @@ def run_stitch(label: str, iset, cfg, dev, mesh=None):
     else:
         res = api.stitch_multichip(iset, cfg, mesh=mesh, seed=0, timer=timer)
     wall = time.perf_counter() - t0
-    counts = dict(kernels.launch_counts(), ba_graph_captures=bundle.graph_captures,
+    counts = dict(trace.launch_counts(), ba_graph_captures=bundle.graph_captures,
                   ba_graph_replays=bundle.graph_replays)
     log(f"{label}: stage s (stream) " + json.dumps({k: round(v, 4) for k, v in timer.report().items()})
         + f" total {wall:.3f}")
@@ -1414,18 +1414,6 @@ def ba_phase_inputs(rec: dict, dev):
     return spec, inp, 5 if rec["kw"].get("with_k1") else 4, cfg
 
 
-def ba_normals_error(got, ref) -> float:
-    """`ba_normals`' largest difference to a reference, each entry over its
-    Cauchy-Schwarz scale: sqrt(JtJ_aa JtJ_bb) for JtJ, sqrt(JtJ_aa cost)
-    for Jtg, the cost for the cost."""
-    JtJ, Jtg, cost = (x.double().cpu() for x in got)
-    rJ, rg, rc = (x.double().cpu() for x in ref)
-    d = (rJ.diagonal(dim1=1, dim2=2).clamp(min=0) + 1e-30).sqrt()
-    return float(max(((JtJ - rJ).abs() / (d[:, :, None] * d[:, None, :])).max(),
-                     ((Jtg - rg).abs() / (d * (rc.clamp(min=0) + 1e-30).sqrt()[:, None])).max(),
-                     ((cost - rc).abs() / (rc.abs() + 1e-30)).max()))
-
-
 def ba_system_error(got, ref) -> float:
     """`ba_system`'s largest difference to a reference, each entry over its
     Cauchy-Schwarz scale: sqrt(H_aa H_bb) for H, sqrt(H_aa cost) for g, the
@@ -1442,19 +1430,16 @@ def phase_ba(dev, recs: dict) -> dict:
     """Phase 9b: the bundle adjustment of phases 5 (the ring) and 9
     (pano100), from their recorded inputs, at each one's largest LM phase
     (the ring: nb 64, pb 64, M 300; pano100: nb 128, pb 128, M 256; pd 5).
-    `ba_system` (the LM's linearisation: H, g, cost) and, off the main path,
-    `ba_normals` (per-pair blocks), each against its plain version and both
-    against the plain version in float64 (`ba_system_error`,
-    `ba_normals_error`: no more than twice the float32 plain version's own
-    error, or 1e-5), a repeat launch bit-identical. Times on the device:
-    `ba_system`, the per-pair linearisation (`ba_normals` + the one-hot einsum
-    assembly + the cost's sum) and `ba_normals` alone, each a launch from a
-    CUDA graph of GRAPH_LAUNCHES (`graph_ms`), beside an empty kernel's (the
-    launch floor) and the bound; the same kernels and the plain versions
-    with `time_ms`. Then each whole BA again, eagerly and replayed from the
-    cached CUDA graphs: R, f, k1 and cost bit-identical to each other and to
-    the stitch's own, each wall-timed (host clock, ending in a synchronize).
-    Returns {scene: record}."""
+    `ba_system` (the LM's linearisation: H, g, cost) against its plain
+    version and against the plain version in float64 (`ba_system_error`: no
+    more than twice the float32 plain version's own error, or 1e-5), a
+    repeat launch bit-identical. Times on the device: `ba_system`, a launch
+    from a CUDA graph of GRAPH_LAUNCHES (`graph_ms`), beside an empty
+    kernel's (the launch floor) and the bound; the kernel and the plain
+    version with `time_ms`. Then each whole BA again, eagerly and replayed
+    from the cached CUDA graphs: R, f, k1 and cost bit-identical to each
+    other and to the stitch's own, each wall-timed (host clock, ending in a
+    synchronize). Returns {scene: record}."""
     import torch
 
     from autopanostitch_tpu_torch.kernels import ba as kba
@@ -1474,29 +1459,18 @@ def phase_ba(dev, recs: dict) -> dict:
     out = {}
     for name, rec in recs.items():
         spec, inp, pd, cfg = ba_phase_inputs(rec, dev)
-        pair_args = tuple(inp[k] for k in ("Rb", "f", "k1", "cx", "cy", "u_i", "u_j", "w", "pij"))
-        opts = (pd, float(cfg.sigma_huber), bool(cfg.residual_one_direction))
-        sys_args = pair_args + (inp["ext"], inp["inc_off"], inp["inc"]) + opts
-        nrm_args = pair_args + opts
-        checks = {}
-        for label, kern, plain, error in (
-                ("ba_system", kba.ba_system, kba.ba_system_plain, ba_system_error),
-                ("ba_normals", kba.ba_normals, kba.ba_normals_plain, ba_normals_error)):
-            args = sys_args if label == "ba_system" else nrm_args
-            got, again, ref, ref64 = kern(*args), kern(*args), plain(*args), plain(*f64(args))
-            sync(dev)
-            checks[label] = dict(repeat=all(torch.equal(a, b) for a, b in zip(got, again)),
-                                 err=error(got, ref), err64=error(got, ref64),
-                                 plain_err64=error(ref, ref64))
-        E = kba.camera_map(inp["pij"], spec.nb, torch.float32)
+        sys_args = tuple(inp[k] for k in ("Rb", "f", "k1", "cx", "cy", "u_i", "u_j", "w", "pij",
+                                          "ext", "inc_off", "inc"))
+        sys_args += (pd, float(cfg.sigma_huber), bool(cfg.residual_one_direction))
+        got, again = kba.ba_system(*sys_args), kba.ba_system(*sys_args)
+        ref, ref64 = kba.ba_system_plain(*sys_args), kba.ba_system_plain(*f64(sys_args))
+        sync(dev)
+        c = dict(repeat=all(torch.equal(a, b) for a, b in zip(got, again)),
+                 err=ba_system_error(got, ref), err64=ba_system_error(got, ref64),
+                 plain_err64=ba_system_error(ref, ref64))
         times = {"ba_system": graph_ms(lambda: kba.ba_system(*sys_args), dev),
-                 "per_pair_path": graph_ms(lambda: kba.assemble_plain(*kba.ba_normals(*nrm_args), E),
-                                       dev),
-                 "ba_normals": graph_ms(lambda: kba.ba_normals(*nrm_args), dev),
                  "ba_system_events": time_ms(lambda: kba.ba_system(*sys_args), dev),
-                 "ba_normals_events": time_ms(lambda: kba.ba_normals(*nrm_args), dev),
-                 "plain": time_ms(lambda: kba.ba_system_plain(*sys_args), dev),
-                 "normals_plain": time_ms(lambda: kba.ba_normals_plain(*nrm_args), dev)}
+                 "plain": time_ms(lambda: kba.ba_system_plain(*sys_args), dev)}
         M = inp["w"].shape[1]
         real = int((inp["w"] > 0).sum())
         slots = int(inp["ext"].sum())
@@ -1508,40 +1482,25 @@ def phase_ba(dev, recs: dict) -> dict:
                      + (spec.nb + 1) * 8 + (n * n + n + 1) * 4)
         sys_bound, sys_by = bound_ms(flop + spec.npair * (n2 * n2 + n2 + 1), sys_bytes,
                                      FP32_FLOPS)
-        nrm_bytes = (spec.pb * M * (8 + 8 + 4) + spec.pb * 16 + spec.nb * 13 * 4
-                     + spec.pb * (n2 * n2 + n2 + 1) * 4)
-        nrm_bound, nrm_by = bound_ms(flop, nrm_bytes, FP32_FLOPS)
-        c, cn = checks["ba_system"], checks["ba_normals"]
         log(f"ba_system {name}: phase (nb {spec.nb}, pb {spec.pb}, M {M}, pd {pd}), {real} real "
             f"matches of {spec.pb * M} slots ({slots} within the extents): max scaled diff to "
             f"plain {c['err']:.3e}, to the plain version in float64 {c['err64']:.3e} (the plain "
             f"version's own {c['plain_err64']:.3e}; gate: the larger of twice that and 1e-5), "
             f"repeat launch bit-identical {c['repeat']} | device ms a launch (a CUDA graph of "
-            f"{GRAPH_LAUNCHES}): ba_system {times['ba_system']:.5f}, the per-pair path (ba_normals + "
-            f"einsums + sum) {times['per_pair_path']:.5f}, ba_normals alone {times['ba_normals']:.5f}, "
+            f"{GRAPH_LAUNCHES}): ba_system {times['ba_system']:.5f}, "
             f"launch floor (empty kernel) {floor if floor is None else f'{floor:.5f}'}; "
-            f"events after a sleep: ba_system {times['ba_system_events']:.5f}, ba_normals "
-            f"{times['ba_normals_events']:.5f}; plain {times['plain']:.4f} | bound "
+            f"events after a sleep: ba_system {times['ba_system_events']:.5f}; plain "
+            f"{times['plain']:.4f} | bound "
             f"{sys_bound * 1e3:.3f} us ({sys_by}: {sys_bytes / 1e6:.3f} MB at 3.35 TB/s, "
             f"{flop:.3e} float32 flop at 67 TFLOP/s), share {sys_bound / times['ba_system']:.3%} "
             f"| {smi}")
-        log(f"ba_normals {name} (off the main path): max scaled diff to plain {cn['err']:.3e}, "
-            f"to float64 {cn['err64']:.3e} (plain's own {cn['plain_err64']:.3e}), repeat "
-            f"bit-identical {cn['repeat']}, bound {nrm_bound * 1e3:.3f} us ({nrm_by}), share "
-            f"{nrm_bound / times['ba_normals']:.3%}")
-        for label, ck in checks.items():
-            if not (ck["repeat"] and ck["err64"] <= max(2 * ck["plain_err64"], 1e-5)):
-                raise AssertionError(f"{label} {name}: differs from its plain version or itself")
+        if not (c["repeat"] and c["err64"] <= max(2 * c["plain_err64"], 1e-5)):
+            raise AssertionError(f"ba_system {name}: differs from its plain version or itself")
         out[name] = dict(err=c["err"], err64=c["err64"], plain_err64=c["plain_err64"],
                          ms=times["ba_system"], events_ms=times["ba_system_events"],
                          plain_ms=times["plain"], library_ms=None, bound_ms=sys_bound,
-                         bound_by=sys_by, per_pair_path_ms=times["per_pair_path"], launch_floor_ms=floor,
-                         shape=[spec.nb, spec.pb, M, pd], matches=real,
-                         normals=dict(err=cn["err"], err64=cn["err64"],
-                                      plain_err64=cn["plain_err64"], ms=times["ba_normals"],
-                                      events_ms=times["ba_normals_events"],
-                                      plain_ms=times["normals_plain"], library_ms=None,
-                                      bound_ms=nrm_bound, bound_by=nrm_by))
+                         bound_by=sys_by, launch_floor_ms=floor,
+                         shape=[spec.nb, spec.pb, M, pd], matches=real)
     for name, rec in recs.items():
         runs, walls = {}, {}
         for label, graphs in (("eager", False), ("graph", True)):
@@ -1567,13 +1526,10 @@ RENDER_KERNELS = ("render_sample", "mb_reduce", "mb_collapse", "upsample2x")
 def require_launches(label: str, counts: dict, names, dev, render=RENDER_KERNELS) -> None:
     """Fail unless every kernel of `names` and `render` (the rotational
     multiband render's kernels; none for the planar stitches' linear blend)
-    launched in a run, or if `ba_normals`, off the main path since
-    `ba_system`, did, or if a plain version of a render kernel ran on the
+    launched in a run, or if a plain version of a render kernel ran on the
     card."""
     if dev.type == "cuda" and not all(counts[k] > 0 for k in tuple(names) + tuple(render)):
         raise AssertionError(f"{label}: a kernel of the path never launched: {counts}")
-    if counts["ba_normals"]:
-        raise AssertionError(f"{label}: ba_normals launched on the main path: {counts}")
     if dev.type == "cuda" and counts["render_plain_on_cuda"]:
         raise AssertionError(f"{label}: a plain render function ran on the card: {counts}")
 
@@ -1912,17 +1868,19 @@ def upsample_check(dev, call) -> float:
 
     from autopanostitch_tpu_torch.kernels import render as kr
     from autopanostitch_tpu_torch.ops import sampling as samp
+    from autopanostitch_tpu_torch.utils import trace
 
     images, feathers = call[0][:2]
     images4 = torch.cat([images, feathers[..., None]], -1)
-    before = kr.upsample_launches
+    before = trace.launch_counts()["upsample2x"]
     got = kr.upsample2x(images4)
     err = float((got - samp.upsample2x_cubic(images4)).abs().max())
+    launched = trace.launch_counts()["upsample2x"] - before
     log(f"render: upsample2x of {tuple(images4.shape)}: max |kernel - dense| {err:.3g}, "
-        f"launches {kr.upsample_launches - before}")
+        f"launches {launched}")
     if not err <= 2e-6:
         raise AssertionError(f"render upsample2x: {err:.3g} from the dense products")
-    if dev.type == "cuda" and kr.upsample_launches != before + 1:
+    if dev.type == "cuda" and launched != 1:
         raise AssertionError("render upsample2x: the kernel did not launch once")
     if not torch_equal(got, kr.upsample2x(images4)):
         raise AssertionError("render upsample2x: a repeat launch differs")
@@ -1998,6 +1956,7 @@ def planar_band_check(dev, band: dict) -> tuple:
     record and the band's (colours, weights)."""
     from autopanostitch_tpu_torch.kernels import render as kr
     from autopanostitch_tpu_torch.models import planar
+    from autopanostitch_tpu_torch.utils import trace
 
     band = dict(band, blend_mode="multiband")
     cols, ws = planar.warp_band(*(band[k] for k in (
@@ -2010,10 +1969,10 @@ def planar_band_check(dev, band: dict) -> tuple:
            "collapse_err": float((kr.mb_collapse(cols, ws, levels, plan)
                                   - kr.mb_collapse_plain(cols, ws, levels, plan)).abs().max())}
     rec["float_err"] = max(rec["reduce_err"], rec["collapse_err"])
-    before = (kr.reduce_launches, kr.collapse_launches, kr.plain_on_cuda)
+    names = ("mb_reduce", "mb_collapse", "render_plain_on_cuda")
+    before = trace.launch_counts()
     got = planar.composite_band(**band)
-    launched = (kr.reduce_launches - before[0], kr.collapse_launches - before[1],
-                kr.plain_on_cuda - before[2])
+    launched = tuple(trace.launch_counts()[k] - before[k] for k in names)
     if dev.type == "cuda" and launched != (plan.bands - 1, 1, 0):
         raise AssertionError(f"render planar band: composite_band launched (mb_reduce, "
                              f"mb_collapse, plain versions) {launched}")
@@ -2332,39 +2291,18 @@ def main() -> int:
                        "scale",
          "err_vs_float64": max(r["err64"] for r in ba.values()),
          "plain_err_vs_float64": max(r["plain_err64"] for r in ba.values()),
-         **{k: ba["ring"][k] for k in keys + ("events_ms", "per_pair_path_ms", "launch_floor_ms",
-                                              "shape")},
-         "pano100": {k: ba["pano100"][k] for k in keys + ("events_ms", "per_pair_path_ms", "shape")},
+         **{k: ba["ring"][k] for k in keys + ("events_ms", "launch_floor_ms", "shape")},
+         "pano100": {k: ba["pano100"][k] for k in keys + ("events_ms", "shape")},
          "ms_is": f"device time a launch: a CUDA graph of {GRAPH_LAUNCHES} launches, replay time "
                   f"/ {GRAPH_LAUNCHES} (events_ms: CUDA events around one launch after a sleep; "
-                  "per_pair_path_ms: ba_normals + the one-hot einsum assembly + the cost's sum, the "
-                  "same graph method; launch_floor_ms: an empty kernel's)",
+                  "launch_floor_ms: an empty kernel's)",
          "ba_s": {name: {"eager": r["eager_ba_s"], "graph": r["graph_ba_s"]}
                   for name, r in ba.items()},
          "bound_unit": "the larger of float32 operations (BA_FLOPS_PER_MATCH x the real "
                        "matches, + the assembly's adds) at 67 TFLOP/s and bytes (the match slots "
                        "within the extents, cameras, pairs, lists in; H, g, cost out) at 3.35 TB/s",
          "launches_note": "every rotational stitch of phases 5-11, counting the launches the "
-                          "LM phase graphs replay"},
-        {"name": "ba_normals", "route": "cuda", "source": "autopanostitch_tpu_torch/csrc/ba_normals.cu",
-         "replaces": "autopanostitch_tpu/models/bundle.py:682",
-         "replaces_note": "pair_system, an XLA fusion in the JAX package's LM phase program: a "
-                          "hand kernel with no Pallas counterpart",
-         "on_main_path": False,
-         "launches": counts["ba_normals"], "multichip_launches": mc_counts["ba_normals"],
-         "max_abs_err": max(r["normals"]["err"] for r in ba.values()),
-         "max_err_is": "largest |kernel - plain| over each entry's Cauchy-Schwarz scale",
-         "err_vs_float64": max(r["normals"]["err64"] for r in ba.values()),
-         "plain_err_vs_float64": max(r["normals"]["plain_err64"] for r in ba.values()),
-         **{k: ba["ring"]["normals"][k] for k in keys + ("events_ms",)},
-         "shape": ba["ring"]["shape"],
-         "pano100": {k: ba["pano100"]["normals"][k] for k in keys + ("events_ms",)},
-         "ms_is": "phase 9b: device time a launch from a CUDA graph, as ba_system's",
-         "bound_unit": "the larger of float32 operations (BA_FLOPS_PER_MATCH x the real "
-                       "matches) at 67 TFLOP/s and bytes (matches, cameras, pairs in; blocks "
-                       "out) at 3.35 TB/s",
-         "launches_note": "off the main path since ba_system: the launches are phase 9b's "
-                          "checks only, which no count includes"}
+                          "LM phase graphs replay"}
     ] + [
         {"name": name, "route": "cuda",
          "source": "autopanostitch_tpu_torch/csrc/" + {"render_sample": "render.cu",

@@ -1,5 +1,6 @@
-"""The rotational bundle adjustment's normal equations (`kernels/ba.py`,
-kernel `ba_normals`) and its bucketed LM phases (`models/bundle.py`).
+"""The rotational bundle adjustment's normal equations (`kernels/ba.py`:
+the closed-form Jacobian and the per-pair normal equations of
+`ba_normals_plain`) and its bucketed LM phases (`models/bundle.py`).
 
 On the CPU:
 - the closed-form Jacobian of the bidirectional residual against
@@ -17,13 +18,13 @@ On the CPU:
   solve's blocking differs; `test_bucketed_phase_matches_unpadded` says
   what a whole phase gives), and a whole phase in float64 equal to
   roundoff;
-- a whole phase against the JAX package's `_lm_phase_body`.
+- a whole phase against the JAX package's `_lm_phase_body`;
+- `ba_system`'s refusal of malformed inputs.
 
-On the card (`cuda`-marked, skipped here): the kernel against the plain
-version at the ring's and pano100's phase shapes, a repeat launch
-bit-identical, a bundle adjustment replayed from CUDA graphs
-bit-identical to the same phases run eagerly, and likewise the homography
-bundle adjustment's LM (`models/bundle_h.py`, one graph a bucketed shape):
+On the card (`cuda`-marked, skipped here): a bundle adjustment replayed
+from CUDA graphs bit-identical to the same phases run eagerly, and
+likewise the homography bundle adjustment's LM (`models/bundle_h.py`, one
+graph a bucketed shape):
 
     python -m pytest --noconftest -m cuda tests/test_torch_ba_normals.py -q
 
@@ -42,6 +43,7 @@ from autopanostitch_tpu_torch.models import bundle as tba
 from autopanostitch_tpu_torch.models import bundle_h as tbh
 from autopanostitch_tpu_torch.ops import geometry as geo
 from autopanostitch_tpu_torch.ops import projections as proj
+from autopanostitch_tpu_torch.utils import trace
 from autopanostitch_tpu_torch.utils.ba_scene import perturbed_state, planar_scene, ring_scene
 
 try:  # jax-free runs on the card skip the fixture with the jax imports beside it
@@ -82,9 +84,9 @@ def _statics(one_direction=False):
     return tba._statics(BundleConfig(sigma_huber=SIGMA, residual_one_direction=one_direction))
 
 
-def _normals(inp, pd, one_direction=False, fn=kba.ba_normals):
-    return fn(inp["Rb"], inp["f"], inp["k1"], inp["cx"], inp["cy"], inp["u_i"], inp["u_j"],
-              inp["w"], inp["pij"], pd, SIGMA, one_direction)
+def _normals(inp, pd, one_direction=False):
+    return kba.ba_normals_plain(inp["Rb"], inp["f"], inp["k1"], inp["cx"], inp["cy"], inp["u_i"],
+                                inp["u_j"], inp["w"], inp["pij"], pd, SIGMA, one_direction)
 
 
 # --- the residual as the reference writes it, for torch.func.jacrev -------
@@ -344,16 +346,24 @@ def test_bucketed_phase_matches_unpadded_in_float64(pd):
 
 
 def test_ba_normals_checks_its_inputs():
+    """`ba_system` refuses a pd other than 4 or 5, camera indices that are
+    not int64 and matches of another shape than the weights'."""
     sc = ring_scene(6, 1, 8)
     _, inp = _phase(sc, perturbed_state(sc), "cpu")
+
+    def system(inp, pd):
+        return kba.ba_system(inp["Rb"], inp["f"], inp["k1"], inp["cx"], inp["cy"], inp["u_i"],
+                             inp["u_j"], inp["w"], inp["pij"], inp["ext"], inp["inc_off"],
+                             inp["inc"], pd, SIGMA, False)
+
     with pytest.raises(ValueError, match="pd must be 4 or 5"):
-        _normals(inp, 3)
+        system(inp, 3)
     bad = dict(inp, pij=inp["pij"].int())
     with pytest.raises(ValueError, match="int64"):
-        _normals(bad, 5)
+        system(bad, 5)
     bad = dict(inp, u_j=inp["u_j"][:, :-1])
     with pytest.raises(ValueError, match="pb, M, 2"):
-        _normals(bad, 5)
+        system(bad, 5)
 
 
 def test_run_incremental_ba_recovers_the_ring():
@@ -381,30 +391,6 @@ CARD_SHAPES = {"ring": (20, 3, 300), "pano100": (100, 1, 256)}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", sorted(CARD_SHAPES))
-@pytest.mark.parametrize("pd,one_direction", [(5, False), (4, False), (5, True)])
-def test_ba_normals_kernel_matches_plain_on_card(shape, pd, one_direction):
-    dev = _cuda()
-    n, hops, M = CARD_SHAPES[shape]
-    sc = ring_scene(n, hops, M, seed=11)
-    spec, inp = _phase(sc, perturbed_state(sc, seed=12, k1=0.03 if pd == 5 else 0.0), dev)
-    assert spec.pb == (64 if shape == "ring" else 128)
-    got = _normals(inp, pd, one_direction)
-    ref = _normals(inp, pd, one_direction, fn=kba.ba_normals_plain)
-    again = _normals(inp, pd, one_direction)
-    torch.cuda.synchronize()
-    for a, b in zip(got, again):  # a repeat launch is bit-identical
-        assert torch.equal(a, b)
-    JtJ, Jtg, cost = (x.cpu().numpy().astype(np.float64) for x in got)
-    rJ, rg, rc = (x.cpu().numpy().astype(np.float64) for x in ref)
-    d = np.sqrt(np.einsum("pii->pi", rJ) + 1e-30)
-    _close_scaled(JtJ, rJ, d[:, :, None] * d[:, None, :], 1e-5, "JtJ")
-    _close_scaled(Jtg, rg, d * np.sqrt(rc + 1e-30)[:, None], 1e-5, "Jtg")
-    np.testing.assert_allclose(cost, rc, rtol=1e-5, atol=1e-6)
-    np.testing.assert_array_equal(JtJ, np.swapaxes(JtJ, 1, 2))
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("pd", [5, 4])
 def test_graph_replayed_ba_equals_eager_on_card(pd):
     dev = _cuda()
@@ -415,15 +401,17 @@ def test_graph_replayed_ba_equals_eager_on_card(pd):
             list(range(20)), 0, BundleConfig())
     cfg = args[-1]
     iters = [cfg.incremental_lm_iters] * 19 + [cfg.max_iter_lm // 3 + 1] * 3  # 22 phases
-    before = kba.launches
+    before = trace.launch_counts()["ba_system"]
     eager = tba.run_incremental_ba(*args, with_k1=pd == 5, device=dev, graphs=False)
-    assert kba.launches - before == sum(i + 1 for i in iters)  # one launch an iteration, + 1
-    before = (tba.graph_replays, kba.launches)
+    # one launch an iteration, + 1
+    assert trace.launch_counts()["ba_system"] - before == sum(i + 1 for i in iters)
+    before = (tba.graph_replays, trace.launch_counts()["ba_system"])
     graph = tba.run_incremental_ba(*args, with_k1=pd == 5, device=dev)
     again = tba.run_incremental_ba(*args, with_k1=pd == 5, device=dev)  # cached graphs
     torch.cuda.synchronize()
     assert tba.graph_replays - before[0] == 2 * len(iters)
-    assert kba.launches - before[1] >= 2 * sum(i + 1 for i in iters)  # + the captures' warm-ups
+    # + the captures' warm-ups
+    assert trace.launch_counts()["ba_system"] - before[1] >= 2 * sum(i + 1 for i in iters)
     for a, b, c in zip(eager, graph, again):
         if a is None:
             assert b is None and c is None

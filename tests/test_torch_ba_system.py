@@ -33,6 +33,7 @@ import torch
 
 from autopanostitch_tpu_torch.kernels import ba as kba
 from autopanostitch_tpu_torch.models import bundle as tba
+from autopanostitch_tpu_torch.utils import trace
 from autopanostitch_tpu_torch.utils.ba_scene import perturbed_state, ring_scene
 from test_torch_ba_normals import (CARD_SHAPES, SIGMA, _close_scaled, _cuda, _jax_phase, _phase,
                                    _statics)
@@ -262,6 +263,13 @@ def _card_phase(shape, pd, dev):
     return _phase(sc, perturbed_state(sc, seed=12, k1=0.03 if pd == 5 else 0.0), dev)
 
 
+def _ba_launches():
+    """`ba_system`'s launches that ran, and those recorded into graphs being
+    captured."""
+    return (trace.launch_counts()["ba_system"],
+            trace.launch_counts(captured=True).get("ba_system", 0))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 @pytest.mark.parametrize("pd,one_direction", [(5, False), (4, False), (5, True)])
@@ -270,12 +278,12 @@ def test_ba_system_kernel_matches_plain_on_card(shape, pd, one_direction):
     spec, inp = _card_phase(shape, pd, dev)
     if shape == "long":
         assert int(inp["ext"].max()) > 2 * SLOTS * CHUNK
-    before = kba.launches
+    before = trace.launch_counts()["ba_system"]
     got = kba.ba_system(*_args(inp, pd, one_direction))
     again = kba.ba_system(*_args(inp, pd, one_direction))
     ref = kba.ba_system_plain(*_args(inp, pd, one_direction))
     torch.cuda.synchronize()
-    assert kba.launches - before == 2
+    assert trace.launch_counts()["ba_system"] - before == 2
     for a, b in zip(got, again):  # a repeat launch is bit-identical
         assert torch.equal(a, b)
     H, g, cost = (x.cpu().numpy().astype(np.float64) for x in got)
@@ -296,10 +304,10 @@ def test_ba_system_graph_replay_equals_eager_on_card(shape):
     eager = kba.ba_system(*_args(inp, 5))
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    before = (kba.launches, kba.captured)
+    before = _ba_launches()
     with torch.cuda.graph(graph):
         out = kba.ba_system(*_args(inp, 5))
-    assert (kba.launches, kba.captured) == (before[0], before[1] + 1)
+    assert _ba_launches() == (before[0], before[1] + 1)
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()

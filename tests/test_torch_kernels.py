@@ -25,6 +25,7 @@ import torch
 from autopanostitch_tpu_torch.kernels import _build
 from autopanostitch_tpu_torch.kernels import knn as tknn
 from autopanostitch_tpu_torch.kernels import window_gather as twg
+from autopanostitch_tpu_torch.utils import trace
 
 
 def _cuda():
@@ -195,9 +196,8 @@ def test_library_is_named_by_source_hash():
     assert p == _build.library_path()
     assert {s.name for s in _build.CSRC.glob("*.cu")} == {"knn.cu", "knn_wide.cu", "knn_bf16.cu",
                                                            "sift_window.cu", "window_gather.cu",
-                                                           "ba_normals.cu", "ba_system.cu",
-                                                           "render.cu", "render_pyramid.cu",
-                                                           "upsample.cu"}
+                                                           "ba_system.cu", "render.cu",
+                                                           "render_pyramid.cu", "upsample.cu"}
     assert {"knn.cuh", "knn_bf16.cuh", "tma.cuh", "ba_direction.cuh"} <= {
         s.name for s in _build._sources()}
 
@@ -227,10 +227,10 @@ def test_knn_kernel_matches_plain_on_card(k, with_self):
     else:
         q = torch.as_tensor(qid, device=dev)
         extra = ()
-    before = tknn.launches
+    before = trace.launch_counts()["knn"]
     idx_k, d_k = tknn.knn(desc, q, desc, q, k, *extra)
     torch.cuda.synchronize()
-    assert tknn.launches == before + 1
+    assert trace.launch_counts()["knn"] == before + 1
     idx_p, d_p = tknn.knn_plain(desc, q, desc, q, k + 1, *extra)
     _assert_knn_agrees(idx_k, d_k, idx_p, d_p)
     if with_self:
@@ -261,10 +261,10 @@ def test_gather_kernel_matches_plain_on_card(win):
     lev = torch.randint(0, 24, (K,), generator=g, device=dev, dtype=torch.int32)
     ys = torch.randint(0, 150 - win + 1, (K,), generator=g, device=dev, dtype=torch.int32)
     xs = torch.randint(0, 200 - win + 1, (K,), generator=g, device=dev, dtype=torch.int32)
-    before = twg.launches
+    before = trace.launch_counts()["window_gather"]
     out = twg.gather_windows(src, lev, ys, xs, win, win)
     torch.cuda.synchronize()
-    assert twg.launches == before + 1
+    assert trace.launch_counts()["window_gather"] == before + 1
     assert torch.equal(out, twg.gather_windows_plain(src, lev, ys, xs, win, win))
 
 
@@ -282,10 +282,10 @@ def test_knn_pairs_kernel_matches_plain_on_card():
     desc = torch.as_tensor(d, device=dev)
     val = torch.as_tensor(valid, device=dev)
     pairs = torch.as_tensor(np.stack(np.triu_indices(5, 1), -1).astype(np.int32), device=dev)
-    before = tknn.pair_launches
+    before = trace.launch_counts()["knn_pairs"]
     idx_k, d_k = tknn.knn_pairs(desc, val, pairs, 2)
     torch.cuda.synchronize()
-    assert tknn.pair_launches == before + 1
+    assert trace.launch_counts()["knn_pairs"] == before + 1
     idx_p, d_p = tknn.knn_pairs_plain(desc, val, pairs, 2)
     assert idx_k.shape == (10, 2, 300, 2)
     # the plain version with one neighbour more: pooled-mode agreement check
@@ -335,10 +335,10 @@ def test_knn_pairs_kernel_takes_a_list_beyond_the_grid_y_limit():
     desc = torch.as_tensor(d, device=dev)
     val = torch.as_tensor(rng.random((400, 32)) > 0.1, device=dev)
     pairs = torch.as_tensor(np.stack(np.triu_indices(400, 1), -1).astype(np.int32), device=dev)
-    before = tknn.pair_launches
+    before = trace.launch_counts()["knn_pairs"]
     idx_k, d_k = tknn.knn_pairs(desc, val, pairs, 2)
     torch.cuda.synchronize()
-    assert tknn.pair_launches == before + 1
+    assert trace.launch_counts()["knn_pairs"] == before + 1
     idx_p, d_p = tknn.knn_pairs_plain(desc, val, pairs, 2)
     assert torch.equal(d_k, d_p)
     assert torch.equal(idx_k, idx_p)
@@ -363,10 +363,10 @@ def _knn_case(seed, Fq, Ft, D, integer=False):
 
 def _run_knn_case(case, k, dev, exact=False, compute_dtype="float32"):
     q, qid, t, tid = (torch.as_tensor(a, device=dev) for a in case)
-    before = tknn.launches
+    before = trace.launch_counts()["knn"]
     idx_k, d_k = tknn.knn(q, qid, t, tid, k, compute_dtype=compute_dtype)
     torch.cuda.synchronize()
-    assert tknn.launches == before + 1
+    assert trace.launch_counts()["knn"] == before + 1
     if exact:
         idx_p, d_p = tknn.knn_plain(q, qid, t, tid, k, compute_dtype=compute_dtype)
         assert torch.equal(d_k, d_p) and torch.equal(idx_k, idx_p)
@@ -544,10 +544,10 @@ def test_knn_kernel_bf16_matches_plain_on_card(k, with_self):
     else:
         q = torch.as_tensor(qid, device=dev)
         extra = ()
-    before = tknn.launches
+    before = trace.launch_counts()["knn"]
     idx_k, d_k = tknn.knn(desc, q, desc, q, k, *extra, compute_dtype="bfloat16")
     torch.cuda.synchronize()
-    assert tknn.launches == before + 1 and idx_k.shape == (len(d), k)
+    assert trace.launch_counts()["knn"] == before + 1 and idx_k.shape == (len(d), k)
     idx_p, d_p = tknn.knn_plain(desc, q, desc, q, k + 1, *extra, compute_dtype="bfloat16")
     _assert_knn_agrees(idx_k, d_k, idx_p, d_p, rtol=1e-5, atol=1e-6)
 
@@ -571,10 +571,10 @@ def test_knn_pairs_kernel_bf16_matches_plain_on_card():
     desc = torch.as_tensor(d, device=dev)
     val = torch.as_tensor(valid, device=dev)
     pairs = torch.as_tensor(np.stack(np.triu_indices(5, 1), -1).astype(np.int32), device=dev)
-    before = tknn.pair_launches
+    before = trace.launch_counts()["knn_pairs"]
     idx_k, d_k = tknn.knn_pairs(desc, val, pairs, 2, compute_dtype="bfloat16")
     torch.cuda.synchronize()
-    assert tknn.pair_launches == before + 1
+    assert trace.launch_counts()["knn_pairs"] == before + 1
     for p in range(10):
         for side in range(2):
             q = pairs[p, side].item()

@@ -55,6 +55,7 @@ from autopanostitch_tpu_torch.kernels import render as kr
 from autopanostitch_tpu_torch.models import planar as tplanar
 from autopanostitch_tpu_torch.models import render as trender
 from autopanostitch_tpu_torch.ops import sampling as tsamp
+from autopanostitch_tpu_torch.utils import trace
 
 try:  # jax-free runs on the card skip the fixture with the jax imports beside it
     from test_torch_pipeline import one_torch_thread  # noqa: F401
@@ -258,22 +259,20 @@ def test_upsample_by_taps_matches_dense(shape):
 
 def test_upsample2x_on_cpu_is_the_plain_version():
     x = torch.as_tensor(np.random.default_rng(5).uniform(size=(3, 17, 23, 4)).astype(np.float32))
-    kr.upsample_launches = kr.plain_on_cuda = 0
+    trace.reset_launch_counts()
     got = kr.upsample2x(x)
     assert torch.equal(got, tsamp.upsample2x_cubic(x)) and got.is_contiguous()
-    assert kr.upsample_launches == 0 and kr.plain_on_cuda == 0
+    assert trace.launch_counts()["upsample2x"] == trace.launch_counts()["render_plain_on_cuda"] == 0
     with pytest.raises(ValueError, match="float32"):
         kr.upsample2x(x[..., :3])
 
 
 def test_launch_counts_report_upsample2x():
-    from autopanostitch_tpu_torch import kernels
-
-    kernels.reset_launch_counts()
-    kr.upsample_launches = 3
-    assert kernels.launch_counts()["upsample2x"] == 3
-    kernels.reset_launch_counts()
-    assert kernels.launch_counts()["upsample2x"] == 0
+    trace.reset_launch_counts()
+    trace.launched("upsample2x", 3)
+    assert trace.launch_counts()["upsample2x"] == 3
+    trace.reset_launch_counts()
+    assert trace.launch_counts()["upsample2x"] == 0
 
 
 def test_every_pyramid_fits_mb_reduce():
@@ -476,11 +475,11 @@ def _u8_gate(u8_k, cov_k, u8_p, cov_p):
 def test_render_sample_kernel_matches_plain_on_card(mode, interp, blend, use_k1):
     dev = _cuda()
     args = _sample_args(_scene(), mode, interp, blend, use_k1, dev, n_tiles=6)
-    before = kr.sample_launches
+    before = trace.launch_counts()["render_sample"]
     got = kr.render_sample(*args)
     ref = kr.render_sample_plain(*args)
     torch.cuda.synchronize()
-    assert kr.sample_launches == before + 1
+    assert trace.launch_counts()["render_sample"] == before + 1
     if blend == "multiband":
         for a, b in zip(got, ref):
             assert float((a - b).abs().max()) <= 1e-5
@@ -564,13 +563,14 @@ def test_rendered_panorama_matches_plain_on_card():
     canvas = trender.compute_canvas(R, K, sizes, "spherical", RenderConfig(tile=TILE), k1=k1)
     out = {}
     for d in (dev, torch.device("cpu")):
-        kr.sample_launches = kr.reduce_launches = kr.collapse_launches = kr.plain_on_cuda = 0
+        trace.reset_launch_counts()
         out[d.type] = trender.render_rotational(
             torch.as_tensor(imgs, device=d), torch.as_tensor(feathers, device=d), R, K, canvas,
             gains=GAINS, tile=TILE, sizes=sizes, k1=k1)
         if d.type == "cuda":
-            assert kr.sample_launches and kr.reduce_launches and kr.collapse_launches
-            assert kr.plain_on_cuda == 0
+            counts = trace.launch_counts()
+            assert counts["render_sample"] and counts["mb_reduce"] and counts["mb_collapse"]
+            assert counts["render_plain_on_cuda"] == 0
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
     assert np.abs(out["cuda"][0].astype(int) - out["cpu"][0].astype(int)).max() <= 1
 
@@ -584,11 +584,11 @@ def test_planar_band_multiband_kernels_on_card(interp):
     same warped band (coverage equal, uint8 gate)."""
     dev = _cuda()
     args = _band_args(dev, n=9, hw=(300, 400), band=(512, 1003))
-    before = (kr.reduce_launches, kr.collapse_launches, kr.plain_on_cuda)
+    names = ("mb_reduce", "mb_collapse", "render_plain_on_cuda")
+    before = trace.launch_counts()
     u8, cov = tplanar.composite_band(*args, "multiband", 3, interp)
     torch.cuda.synchronize()
-    assert (kr.reduce_launches - before[0], kr.collapse_launches - before[1],
-            kr.plain_on_cuda - before[2]) == (2, 1, 0)
+    assert tuple(trace.launch_counts()[k] - before[k] for k in names) == (2, 1, 0)
     cols, ws = tplanar.warp_band(*args, interp)
     _u8_gate(u8, cov, *kr.multiband_plain(cols, ws, 3, to_u8=True))
     assert 0.3 < float(cov.float().mean()) < 1
@@ -604,11 +604,11 @@ def test_upsample2x_kernel_matches_dense_on_card(shape):
     dev = _cuda()
     x = torch.as_tensor(np.random.default_rng(shape[0]).uniform(size=shape).astype(np.float32),
                         device=dev)
-    before = kr.upsample_launches
+    before = trace.launch_counts()["upsample2x"]
     got = kr.upsample2x(x)
     ref = tsamp.upsample2x_cubic(x)
     torch.cuda.synchronize()
-    assert kr.upsample_launches == before + 1
+    assert trace.launch_counts()["upsample2x"] == before + 1
     assert got.shape == ref.shape and got.is_contiguous()
     assert float((got - ref).abs().max()) <= 2e-6
     del ref
@@ -638,10 +638,10 @@ def test_ring38_render_on_upsample2x_matches_dense_on_card(monkeypatch):
     gains = np.ones((n, 3), np.float32)
     render = lambda: trender.render_tile_list(imgs, feathers, R, K, gains, None, sel, ok, org,
                                               canvas, tile, "multiband", 3, 1.0, "bicubic2x")
-    before = kr.upsample_launches
+    before = trace.launch_counts()["upsample2x"]
     u8, cov = render()
     torch.cuda.synchronize()
-    assert kr.upsample_launches == before + 1
+    assert trace.launch_counts()["upsample2x"] == before + 1
     monkeypatch.setattr(kr, "upsample2x", tsamp.upsample2x_cubic)
     u8_p, cov_p = render()
     assert torch.equal(cov, cov_p) and float(cov.float().mean()) > 0.5

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from autopanostitch_tpu_torch.kernels import sift_window as sw
+from autopanostitch_tpu_torch.utils import trace
 
 try:  # jax-free runs on the card skip the fixture with the jax imports beside it
     from test_torch_pipeline import one_torch_thread  # noqa: F401
@@ -238,11 +239,12 @@ def _run_both(dev, S, H, W, win, K, seed=6, src_override=None):
     src, lev, ys, xs, lx, ly, srel, theta = _torch(_case(seed, S, H, W, win, K), dev)
     if src_override is not None:
         src = src_override(src)
-    h0, d0 = sw.orient_launches, sw.descriptor_launches
+    h0, d0 = (trace.launch_counts()[k] for k in ("orient_hist", "descriptor"))
     hist = sw.orient_hist(src, lev, ys, xs, lx, ly, srel, win)
     desc = sw.descriptor(src, lev, ys, xs, lx, ly, srel, theta, win)
     torch.cuda.synchronize()
-    assert (sw.orient_launches, sw.descriptor_launches) == (h0 + 1, d0 + 1)
+    assert (trace.launch_counts()["orient_hist"], trace.launch_counts()["descriptor"]) == (
+        h0 + 1, d0 + 1)
     return src, (lev, ys, xs, lx, ly, srel, theta), hist, desc
 
 

@@ -1,7 +1,8 @@
 """The port's tracer (`autopanostitch_tpu_torch/utils/trace.py`) on the CPU:
 nothing recorded where nothing listens, the span tree, the folder tag and
 the counters of small `parity_scenes` stitches, the stage timer without
-a synchronize, and one clock with the profiler's events."""
+a synchronize, one clock with the profiler's events, and the tally of
+kernel launches."""
 
 import time
 
@@ -165,6 +166,34 @@ def test_summary_syncs_and_counters():
         "counters of stitch 1 (f:1): launches.knn=2 ransac.pairs=4")
     assert trace.is_sync("cudaStreamSynchronize") and trace.is_sync("cudaMemcpy_v2")
     assert not trace.is_sync("cudaMemcpyAsync")
+
+
+def test_launch_tally_reaches_the_stitch():
+    """Launches added to the tally inside a recorded stitch are its root's
+    `launches.<name>` counters; launches outside any stitch, and those
+    recorded into a graph being captured, are not; a reset zeroes the tally
+    and keeps every kernel's name."""
+    records = []
+    undo = trace.subscribe(records.append)
+    try:
+        trace.launched("knn")
+        with trace.stitch(["a", "b"], np.array([[4, 4], [4, 4]], np.int32)):
+            with trace.span("matching"):
+                trace.launched("knn", 2)
+                trace.launched("ba_system", captured=True)
+            trace.launched("render_sample")
+        trace.launched("knn")
+    finally:
+        undo()
+    assert {k: v for k, v in records[0].root.counters.items() if k.startswith("launches.")} == {
+        "launches.knn": 2, "launches.render_sample": 1}
+    assert records[0].spans[1].counters == {}
+    assert trace.launch_counts()["knn"] >= 4
+    assert trace.launch_counts(captured=True)["ba_system"] >= 1
+    trace.reset_launch_counts()
+    counts = trace.launch_counts()
+    assert {"knn", "render_sample"} <= set(counts) and not any(counts.values())
+    assert trace.launch_counts(captured=True) == {}
 
 
 def test_stamps_share_the_profilers_clock():
