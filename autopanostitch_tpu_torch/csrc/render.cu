@@ -1,9 +1,12 @@
-// The rotational render stage's tile sampler.
+// The render stage's samplers: the rotational tile sampler and the planar
+// band warp.
 //
 // Replaces what the JAX package computes in `_render_tile_impl`
 // (autopanostitch_tpu/models/render.py:292, its `sample_one` and the
-// linear / none-* scans): XLA fusions there, no Pallas kernel. The multiband
-// pyramid that blends its multiband output is `csrc/render_pyramid.cu`.
+// linear / none-* scans) and in the planar `composite_band`'s `warp_one`
+// (autopanostitch_tpu/models/planar.py:137): XLA fusions there, no Pallas
+// kernel. The multiband pyramid that blends their multiband output is
+// `csrc/render_pyramid.cu`.
 //
 // `render_sample`: one thread a canvas pixel of a tile. The pixel's world
 // ray (five projections), then for each contributor slot c in order: its
@@ -15,18 +18,30 @@
 // weight; for linear and none-* it blends the slots in registers and writes
 // the uint8 tile and its coverage.
 //
-// Arithmetic: this file is compiled with -fmad=false, so every product and
-// sum rounds as PyTorch's elementwise operators round them; the sampler's
-// plain version (`kernels/render.render_sample_plain`) writes its ray and
-// rotation products as explicit sums and divides by tensors, and the kernel
-// follows its order operation for operation.
+// `planar_warp`: one thread a pixel of a planar canvas row band. For each
+// image k in order: the band pixel's world point through the image's
+// inverse homography (`sampling.homography_coords`), the same `sample()`
+// on the gained RGB + feather stack, and the colour and the clamped
+// feather, times the image's validity, written to (N, band_h, W, 3) and
+// (N, band_h, W). A position outside every sampler's bounds (half a pixel
+// beyond the image) skips its taps: its value is 0 either way. Its plain
+// version is `kernels/render.planar_warp_plain`.
 //
-// What bounds it on an H100: bytes. The sampler reads its taps from the
-// image stack (L2-resident neighbourhoods) and writes 16 bytes a slot and
-// pixel for multiband (4 a pixel for the others): at the ring's canvas (~70
-// tiles of 96 x 384, 6 slots) ~0.25 GB, ~0.08 ms at 3.35 TB/s. Every output
-// is written once by one thread in a fixed order: no atomics, so a tile's
-// result does not depend on the other tiles of its launch.
+// Arithmetic: this file is compiled with -fmad=false, so every product and
+// sum rounds as PyTorch's elementwise operators round them; the plain
+// versions (`kernels/render.render_sample_plain`, `planar_warp_plain`) write
+// their ray, rotation and homography products as explicit sums and divide
+// by tensors, and the kernels follow their order operation for operation.
+//
+// What bounds them on an H100: bytes. The samplers read their taps from the
+// image stack (L2-resident neighbourhoods). `render_sample` writes 16 bytes
+// a slot and pixel for multiband (4 a pixel for the others): at the ring's
+// canvas (~70 tiles of 96 x 384, 6 slots) ~0.25 GB, ~0.08 ms at 3.35 TB/s.
+// `planar_warp` writes 16 bytes an image and pixel: at the planar scan's
+// band (9 images, 512 x 1920) 141.6 MB, plus the (9, 600, 800, 4) stack read
+// once (69.1 MB), ~0.063 ms. Every output is written once by one thread in
+// a fixed order: no atomics, so a tile's (a band's) result does not depend
+// on the other tiles of its launch.
 
 #include <cuda_runtime.h>
 
@@ -281,6 +296,48 @@ __global__ void __launch_bounds__(kThreads) render_sample_kernel(const SampleArg
   p.covered[o] = cov ? 1 : 0;
 }
 
+struct WarpArgs {
+  SampleArgs s;  // the stack (img, n_img, Hs, Ws), its bounds (H, W) and interp
+  const float* h_inv;  // (N, 3, 3): canvas world point -> image k
+  const unsigned char* ok;  // (N,)
+  int bh, w;  // the band's rows and columns
+  float x0, y0;  // the world point of the band's pixel (0, 0)
+  float* col;  // (N, bh, w, 3)
+  float* wt;  // (N, bh, w)
+};
+
+__global__ void __launch_bounds__(kThreads) planar_warp_kernel(const WarpArgs a) {
+  const long long P = static_cast<long long>(a.bh) * a.w;
+  const long long pix = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (pix >= P) return;
+  const int r = static_cast<int>(pix / a.w);
+  const int c = static_cast<int>(pix - static_cast<long long>(r) * a.w);
+  const float xw = static_cast<float>(c) + a.x0, yw = static_cast<float>(r) + a.y0;
+  const float Wo = static_cast<float>(a.s.W) - 0.5f, Ho = static_cast<float>(a.s.H) - 0.5f;
+  for (int k = 0; k < a.s.n_img; ++k) {
+    const float* h = a.h_inv + 9 * k;
+    float den = (__ldg(h + 6) * xw + __ldg(h + 7) * yw) + __ldg(h + 8);
+    den = fabsf(den) < 1e-10f ? 1e-10f : den;
+    const float xs = ((__ldg(h) * xw + __ldg(h + 1) * yw) + __ldg(h + 2)) / den;
+    const float ys = ((__ldg(h + 3) * xw + __ldg(h + 4) * yw) + __ldg(h + 5)) / den;
+    // outside nearest's bounds, the widest: every sampler gives 0 there (a
+    // non-finite coordinate takes the taps, as the plain version does)
+    const bool off =
+        isfinite(xs) && isfinite(ys) && (xs < -0.5f || xs > Wo || ys < -0.5f || ys > Ho);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (!off) {
+      bool valid;
+      v = sample(a.s, k, xs, ys, valid);
+    }
+    const float okf = a.ok[k] ? 1.f : 0.f;
+    const size_t o = static_cast<size_t>(k) * P + pix;
+    a.col[3 * o] = v.x * okf;
+    a.col[3 * o + 1] = v.y * okf;
+    a.col[3 * o + 2] = v.z * okf;
+    a.wt[o] = clamp_min(v.w, 0.f) * okf;
+  }
+}
+
 inline unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
@@ -304,5 +361,32 @@ extern "C" int apst_render_sample(const float* img, int n_img, int Hs, int Ws, i
                col, w, out, covered};
   for (int i = 0; i < 9; ++i) p.rr[i] = r_ref[i];
   render_sample_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int apst_planar_warp(const float* img, int n_img, int Hs, int Ws, int H, int W,
+                                const float* h_inv, const unsigned char* ok, int bh, int w,
+                                float x0, float y0, int interp, float* col, float* wt,
+                                void* stream) {
+  const long long n = static_cast<long long>(bh) * w;
+  if (n_img < 1 || bh < 1 || w < 1 || interp < 0 || interp > 3 || blocks_for(n) > 0x7fffffffu)
+    return static_cast<int>(cudaErrorInvalidValue);
+  WarpArgs a{};
+  a.s.img = reinterpret_cast<const float4*>(img);
+  a.s.n_img = n_img;
+  a.s.Hs = Hs;
+  a.s.Ws = Ws;
+  a.s.H = H;
+  a.s.W = W;
+  a.s.interp = interp;
+  a.h_inv = h_inv;
+  a.ok = ok;
+  a.bh = bh;
+  a.w = w;
+  a.x0 = x0;
+  a.y0 = y0;
+  a.col = col;
+  a.wt = wt;
+  planar_warp_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -132,6 +132,8 @@ def _declare(lib):
     lib.apst_render_sample.argtypes = ([P, I, I, I, I, I] + [P] * 7 + [I] * 7 + [F] * 3
                                        + [P, F] + [P] * 5)
     lib.apst_render_sample.restype = I
+    lib.apst_planar_warp.argtypes = [P, I, I, I, I, I, P, P, I, I, F, F, I, P, P, P]
+    lib.apst_planar_warp.restype = I
     lib.apst_mb_reduce.argtypes = [P, P, P] + [I] * 6 + [P, P, P, I] * 2 + [I, I, P, P]
     lib.apst_mb_reduce.restype = I
     lib.apst_mb_collapse.argtypes = [P, P, I, I, I, P, P, I, P, P, P, P]

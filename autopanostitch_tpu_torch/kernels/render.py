@@ -1,4 +1,4 @@
-"""The rotational render stage — CUDA kernel wrappers and plain versions.
+"""The render stage — CUDA kernel wrappers and plain versions.
 
 `render_sample` computes what the JAX package's `_render_tile_impl`
 (`autopanostitch_tpu/models/render.py:292`) computes before its blend, and
@@ -21,14 +21,25 @@ writes either the float blend or, as the renderer finishes a tile, the
 uint8 tile and its coverage (sum of weights > 1e-3). `pyramid_plan` builds
 both kernels' tables and raises for a pyramid they cannot take.
 
+`planar_warp` computes what the JAX package's planar `composite_band`
+(`autopanostitch_tpu/models/planar.py:121`, its `warp_one`) computes before
+its blend: for each pixel of a canvas row band and each image, in order,
+the pixel's world point through the image's inverse homography
+(`sampling.homography_coords`), the sample of the gained RGB + feather
+stack, and the colour (N, band_h, W, 3) and the clamped feather (N,
+band_h, W), times the image's validity. Its bytes bound at the planar
+scan's band (9 images, 512 x 1920) is ~0.063 ms: colours and weights
+written once (141.6 MB), the (9, 600, 800, 4) stack read once (69.1 MB).
+
 `upsample2x` is bicubic2x's 2x Keys upsample of the (N, H, W, 4) stack
 (`jax.image.resize(..., "cubic")` semantics), 4 taps an axis from
 `sampling.resize_taps`' tables, H first and then W.
 
-Kernels: `csrc/render.cu` (`render_sample`), `csrc/render_pyramid.cu`
-(`mb_reduce`, `mb_collapse`) and `csrc/upsample.cu` (`upsample2x`). CUDA
-tensors launch them or raise; CPU tensors take the plain versions
-(`render_sample_plain`, `mb_reduce_plain`, `mb_collapse_plain`,
+Kernels: `csrc/render.cu` (`render_sample`, `planar_warp`),
+`csrc/render_pyramid.cu` (`mb_reduce`, `mb_collapse`) and
+`csrc/upsample.cu` (`upsample2x`). CUDA tensors launch them or raise; CPU
+tensors take the plain versions (`render_sample_plain`,
+`planar_warp_plain`, `mb_reduce_plain`, `mb_collapse_plain`,
 `multiband_plain`; for `upsample2x` the dense products of
 `sampling.upsample2x_cubic`). The plain sampler's geometry is
 `ops/projections`', written to round on the card as the kernel does
@@ -38,8 +49,9 @@ not, and its plain versions are held within 1e-5). This module imports only the 
 the package, so the kernel and ops layers never import each other in a
 cycle.
 
-Launch counting (`trace.launched`): `render_sample`, `mb_reduce` (one a
-level), `mb_collapse` and `upsample2x` count the kernels' launches;
+Launch counting (`trace.launched`): `render_sample`, `planar_warp` (one a
+band), `mb_reduce` (one a level), `mb_collapse` and `upsample2x` count the
+kernels' launches;
 `render_plain_on_cuda` the plain versions' calls on CUDA tensors (a
 comparison's, never the main path's).
 """
@@ -59,8 +71,8 @@ from autopanostitch_tpu_torch.ops import projections as proj  # leaf modules: th
 from autopanostitch_tpu_torch.ops import sampling as samp  # nothing of the package
 from autopanostitch_tpu_torch.utils import trace
 
-trace.declare_kernels("render_sample", "mb_reduce", "mb_collapse", "upsample2x",
-                      "render_plain_on_cuda")
+trace.declare_kernels("render_sample", "planar_warp", "mb_reduce", "mb_collapse",
+                      "upsample2x", "render_plain_on_cuda")
 
 MODES = {"cylindrical": 0, "spherical": 1, "equirectangular": 1, "planar": 2, "perspective": 2,
          "stereographic": 3}
@@ -221,6 +233,74 @@ def render_sample(images4, fine4, R, K, gains, k1, sel, sel_ok, origins, canvas:
     _build.check(err, "apst_render_sample")
     trace.launched("render_sample")
     return outs
+
+
+# ------------------------------------------------------------------ planar band
+
+def planar_warp_plain(images4, fine4, H_inv, ok, band_h: int, out_w: int, x0: float, y0: float,
+                      interp: str):
+    """Plain PyTorch version of `planar_warp` (same arguments)."""
+    _count_plain(images4)
+    N = images4.shape[0]
+    xs, ys = samp.homography_coords(H_inv, band_h, out_w, x0, y0)  # (N, band_h, out_w)
+    col4, _ = samp.sample_indexed(interp, images4,
+                                  torch.arange(N, device=images4.device)[:, None], xs, ys, fine4)
+    okf = ok.float()
+    cols = col4[..., :3] * okf[:, None, None, None]
+    return cols, torch.clamp(col4[..., 3], min=0.0) * okf[:, None, None]
+
+
+def _check_warp(images4, fine4, H_inv, ok, band_h, out_w, interp):
+    if interp not in INTERPS:
+        raise ValueError(f"planar_warp: unknown interpolation {interp!r}")
+    if images4.ndim != 4 or images4.shape[-1] != 4 or images4.dtype != torch.float32:
+        raise ValueError("planar_warp: images4 must be (N, H, W, 4) float32")
+    N, H, W, _ = images4.shape
+    if (interp == "bicubic2x") != (fine4 is not None) or (fine4 is not None and (
+            fine4.shape != (N, 2 * H, 2 * W, 4) or fine4.dtype != torch.float32
+            or fine4.device != images4.device)):
+        raise ValueError("planar_warp: bicubic2x needs fine4 (N, 2H, 2W, 4) float32, no other "
+                         "interpolation takes it")
+    if tuple(H_inv.shape) != (N, 3, 3) or H_inv.dtype != torch.float32 or \
+            H_inv.device != images4.device:
+        raise ValueError(f"planar_warp: H_inv must be ({N}, 3, 3) float32 on {images4.device}, "
+                         f"got {tuple(H_inv.shape)} {H_inv.dtype} on {H_inv.device}")
+    if tuple(ok.shape) != (N,) or ok.dtype != torch.bool or ok.device != images4.device:
+        raise ValueError(f"planar_warp: ok must be ({N},) bool on {images4.device}")
+    if band_h < 1 or out_w < 1:
+        raise ValueError("planar_warp: needs a non-empty band")
+
+
+def planar_warp(images4, fine4, H_inv, ok, band_h: int, out_w: int, x0: float, y0: float,
+                interp: str):
+    """Warp every image into one planar canvas row band of band_h x out_w
+    pixels whose pixel (0, 0) is world point (x0, y0). images4 (N, H, W, 4)
+    float32: the gained RGB and the feather; fine4 its 2x Keys upsample
+    (`upsample2x`) for bicubic2x, else None; H_inv (N, 3, 3) float32 world
+    point -> image pixel; ok (N,) bool. Returns colours (N, band_h, out_w,
+    3) and weights (N, band_h, out_w), float32: the sample's RGB and its
+    feather clamped at 0, both 0 where the sample is out of bounds or the
+    image not ok."""
+    _check_warp(images4, fine4, H_inv, ok, band_h, out_w, interp)
+    if _device(images4, "planar_warp"):
+        return planar_warp_plain(images4, fine4, H_inv, ok, band_h, out_w, x0, y0, interp)
+    dev = images4.device
+    N, H, W, _ = images4.shape
+    cols = torch.empty((N, band_h, out_w, 3), dtype=torch.float32, device=dev)
+    ws = torch.empty((N, band_h, out_w), dtype=torch.float32, device=dev)
+    if N == 0:
+        return cols, ws
+    stack = (images4 if fine4 is None else fine4).contiguous()
+    if stack.data_ptr() % 16:
+        raise ValueError("planar_warp: the image stack must be 16-byte aligned (float4 taps)")
+    hc, okc = H_inv.contiguous(), ok.contiguous()
+    err = _build.library().apst_planar_warp(
+        stack.data_ptr(), N, stack.shape[1], stack.shape[2], H, W, hc.data_ptr(), okc.data_ptr(),
+        band_h, out_w, float(x0), float(y0), INTERPS[interp], cols.data_ptr(), ws.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "apst_planar_warp")
+    trace.launched("planar_warp")
+    return cols, ws
 
 
 # ------------------------------------------------------------------ upsample

@@ -2,11 +2,15 @@
 `models/planar.py`, the reference's non-rotational path
 `renderPanorama.m pureNonRotationalPanoramas :519-822`).
 
-Output limits over all images -> canvas extent -> per row band of the
-canvas: inverse-map warp of every image with its feather as a 4th channel
--> linear, multiband or `none` blend -> uint8. The band split is kept from
-the reference: multiband builds its pyramid per 512-row band, so pixels at
-band edges only agree with the reference if the bands do.
+Output limits over all images -> canvas extent -> the gained images with
+their feathers as a 4th channel, stacked once (`band_stack`) -> per row
+band of the canvas: inverse-map warp of every image (`warp_band`, the
+`planar_warp` kernel of `csrc/render.cu` on the card, its plain version
+`kernels/render.planar_warp_plain` on the CPU; ~0.063 ms of bytes a band
+of the 3x3 scan's 9 x 512 x 1920) -> linear, multiband or `none` blend ->
+uint8. The band split is kept from the reference: multiband builds its
+pyramid per 512-row band, so pixels at band edges only agree with the
+reference if the bands do.
 """
 
 from __future__ import annotations
@@ -81,31 +85,33 @@ def planar_canvas_bounds(H_abs: np.ndarray, sizes: np.ndarray, reachable: np.nda
     return Hc, Wc, float(x0), float(y0), scale
 
 
-def warp_band(images, feathers, H_inv_canvas, valid, gains, band_h: int, out_w: int,
-              x0: float, y0: float, interp: str = "bilinear"):
-    """One canvas row band of band_h rows starting at world row y0, every
-    image warped into it (gain applied, its feather the weight): colours
-    (N, band_h, out_w, 3) and weights (N, band_h, out_w) tensors."""
-    N = images.shape[0]
-    dev = images.device
-    okf = valid.float()
+def band_stack(images, feathers, gains, interp: str = "bilinear"):
+    """What every band samples: images (N, H, W, 3) times gains (N, 3) with
+    the feathers (N, H, W) as a 4th channel, (N, H, W, 4), and for
+    bicubic2x its 2x Keys upsample (`upsample2x`), else None."""
     img4 = torch.cat([images * gains[:, None, None, :], feathers[..., None]], -1)
-    fine = render_kernels.upsample2x(img4) if interp == "bicubic2x" else None
-    xs, ys = samp.homography_coords(H_inv_canvas, band_h, out_w, x0, y0)  # (N, bh, w)
-    col4, _ = samp.sample_indexed(interp, img4, torch.arange(N, device=dev)[:, None],
-                                  xs, ys, fine)
-    ws = torch.clamp(col4[..., 3], min=0.0) * okf[:, None, None]
-    cols = col4[..., :3] * okf[:, None, None, None]
-    return cols, ws
+    return img4, (render_kernels.upsample2x(img4) if interp == "bicubic2x" else None)
+
+
+def warp_band(images, feathers, H_inv_canvas, valid, gains, band_h: int, out_w: int,
+              x0: float, y0: float, interp: str = "bilinear", stack=None):
+    """One canvas row band of band_h rows starting at world row y0, every
+    image warped into it (gain applied, its feather the weight) by
+    `planar_warp`: colours (N, band_h, out_w, 3) and weights (N, band_h,
+    out_w) tensors. stack: `band_stack`'s of these images, made here when
+    None."""
+    img4, fine = band_stack(images, feathers, gains, interp) if stack is None else stack
+    return render_kernels.planar_warp(img4, fine, H_inv_canvas, valid, band_h, out_w, x0, y0,
+                                      interp)
 
 
 def composite_band(images, feathers, H_inv_canvas, valid, gains, band_h: int, out_w: int,
                    x0: float, y0: float, blend_mode: str = "linear", bands: int = 3,
-                   interp: str = "bilinear"):
+                   interp: str = "bilinear", stack=None):
     """One canvas row band (`warp_band`), blended.
     Returns (uint8 (band_h, out_w, 3), covered (band_h, out_w)) tensors."""
     cols, ws = warp_band(images, feathers, H_inv_canvas, valid, gains, band_h, out_w, x0, y0,
-                         interp)
+                         interp, stack)
     if blend_mode == "multiband":  # the render kernels' pyramid, uint8 finish included
         return blend_ops.multiband_blend(cols, ws, bands=bands, to_u8=True)
     band = torch.zeros_like(cols[0])
@@ -154,14 +160,15 @@ def composite_from_abs(images, feathers, sizes: np.ndarray, H_abs: np.ndarray,
     if gains is None:
         gains = np.ones((n, 3), np.float32)
     Hi_d = torch.as_tensor(H_inv.astype(np.float32), device=dev)
-    ok_d = torch.as_tensor(np.asarray(reachable), device=dev)
+    ok_d = torch.as_tensor(np.asarray(reachable, bool), device=dev)
     g_d = torch.as_tensor(np.asarray(gains, np.float32), device=dev)
+    stack = band_stack(images, feathers, g_d, interp)
     pano = np.zeros((Hc, Wc, 3), np.uint8)
     cover = np.zeros((Hc, Wc), bool)
     for r0 in range(0, Hc, band_h):
         with trace.span("render.band"):
             band, cov = composite_band(images, feathers, Hi_d, ok_d, g_d, band_h, Wc, x0s,
-                                       y0s + float(r0), blend_mode, bands, interp)
+                                       y0s + float(r0), blend_mode, bands, interp, stack)
             h = min(band_h, Hc - r0)
             pano[r0 : r0 + h] = band[:h].cpu().numpy()
             cover[r0 : r0 + h] = cov[:h].cpu().numpy()

@@ -126,10 +126,12 @@ Phases, each printing its own lines:
      pixels, coverage equal, a repeat launch bit-identical; the pyramid
      also on the middle band of phase 7's planar canvas, where
      `composite_band`'s multiband must launch 2 + 1 kernels and no plain
-     version; then each kernel timed beside its plain version (and the
-     reduce beside a depthwise `F.conv2d` blur with the resize products)
-     and its bound at the ring's and the folder's whole canvases, and the
-     pyramid at the planar band.
+     version, and the planar band warp `planar_warp` equal to its plain
+     version there (`torch.equal`, the band's interpolation and bicubic);
+     then each kernel timed beside its plain version (and the reduce
+     beside a depthwise `F.conv2d` blur with the resize products) and its
+     bound at the ring's and the folder's whole canvases, and the pyramid
+     and `planar_warp` (bicubic) at the planar band.
 Phases 5-11 each count the kernels' launches from 0 (the tracer's tally,
 `utils/trace.launch_counts`) and fail if a kernel of the path never
 launched (in 11b on either rank) or if a plain version of a render kernel
@@ -1525,9 +1527,9 @@ RENDER_KERNELS = ("render_sample", "mb_reduce", "mb_collapse", "upsample2x")
 
 def require_launches(label: str, counts: dict, names, dev, render=RENDER_KERNELS) -> None:
     """Fail unless every kernel of `names` and `render` (the rotational
-    multiband render's kernels; none for the planar stitches' linear blend)
-    launched in a run, or if a plain version of a render kernel ran on the
-    card."""
+    multiband render's kernels; `planar_warp` alone for the planar
+    stitches' linear blend) launched in a run, or if a plain version of a
+    render kernel ran on the card."""
     if dev.type == "cuda" and not all(counts[k] > 0 for k in tuple(names) + tuple(render)):
         raise AssertionError(f"{label}: a kernel of the path never launched: {counts}")
     if dev.type == "cuda" and counts["render_plain_on_cuda"]:
@@ -1599,7 +1601,8 @@ def phase_planar(dev, w: int, h: int, psnr_min: float):
         raise AssertionError(f"corner error {err:.3f} px >= 1 px")
     if not psnr >= psnr_min:
         raise AssertionError(f"PSNR {psnr:.2f} dB < {psnr_min} dB")
-    require_launches("planar", counts, ("knn", "orient_hist", "descriptor"), dev, render=())
+    require_launches("planar", counts, ("knn", "orient_hist", "descriptor"), dev,
+                     render=("planar_warp",))
     return counts, bands[len(bands) // 2]
 
 
@@ -1629,7 +1632,7 @@ def phase_planar_models(dev, w: int, h: int, psnr_min: float):
         if not (err < 1.0 and psnr >= psnr_min):
             raise AssertionError(f"planar {model}: corner error {err:.3f} px or PSNR {psnr:.2f} dB")
         require_launches(f"planar_{model}", counts, ("knn", "orient_hist", "descriptor"), dev,
-                         render=())
+                         render=("planar_warp",))
         out.append(counts)
     return out
 
@@ -1952,8 +1955,10 @@ def planar_band_check(dev, band: dict) -> tuple:
     no leading dims), warped as `composite_band` warps it. Each kernel
     against its plain version, and `composite_band`'s own multiband (through
     `ops/blend`, which must launch the kernels and no plain version) against
-    the plain multiband of the same band, at the render gates. Returns the
-    record and the band's (colours, weights)."""
+    the plain multiband of the same band, at the render gates; the band's
+    warp, `planar_warp`, equal to its plain version (`torch.equal`) in the
+    band's interpolation and in bicubic. Returns the record and the band's
+    (colours, weights)."""
     from autopanostitch_tpu_torch.kernels import render as kr
     from autopanostitch_tpu_torch.models import planar
     from autopanostitch_tpu_torch.utils import trace
@@ -1961,7 +1966,13 @@ def planar_band_check(dev, band: dict) -> tuple:
     band = dict(band, blend_mode="multiband")
     cols, ws = planar.warp_band(*(band[k] for k in (
         "images", "feathers", "H_inv_canvas", "valid", "gains", "band_h", "out_w", "x0", "y0",
-        "interp")))
+        "interp", "stack")))
+    for interp in dict.fromkeys((band["interp"], "bicubic")):
+        wargs = planar_warp_args(band, interp)
+        if not all(torch_equal(a, b) for a, b in zip(kr.planar_warp(*wargs),
+                                                      kr.planar_warp_plain(*wargs))):
+            raise AssertionError(f"render planar band: planar_warp ({interp}) differs from its "
+                                 f"plain version")
     plan = kr.pyramid_plan(cols.shape[-3], cols.shape[-2], band["bands"], 1.0, dev)
     levels = kr.mb_reduce(cols, ws, plan)
     rec = {"reduce_err": max(float((a - b).abs().max())
@@ -1981,6 +1992,34 @@ def planar_band_check(dev, band: dict) -> tuple:
         f"{float(got[1].float().mean()):.3f}: {json.dumps(rec)}")
     render_gate("planar band", rec)
     return rec, (cols, ws)
+
+
+def planar_warp_args(band: dict, interp: str) -> tuple:
+    """`planar_warp`'s arguments for a recorded `composite_band` call, in
+    `interp` (the stack's 2x upsample made here for bicubic2x)."""
+    from autopanostitch_tpu_torch.models import planar
+
+    img4, fine = planar.band_stack(band["images"], band["feathers"], band["gains"], interp)
+    return (img4, fine, band["H_inv_canvas"], band["valid"], band["band_h"], band["out_w"],
+            band["x0"], band["y0"], interp)
+
+
+def planar_warp_times(dev, band: dict) -> dict:
+    """Device times (`time_ms`, `graph_ms`) of `planar_warp` and its plain
+    version at a recorded planar band in bicubic, with its bytes bound: the
+    colours and weights written once (16 bytes an image and pixel) and the
+    (N, H, W, 4) stack read once."""
+    from autopanostitch_tpu_torch.kernels import render as kr
+
+    wargs = planar_warp_args(band, "bicubic")
+    img4 = wargs[0]
+    N = img4.shape[0]
+    b, by = bound_ms(0.0, N * band["band_h"] * band["out_w"] * 16 + img4.numel() * 4)
+    return {"shape": {"band": [N, band["band_h"], band["out_w"]], "images": list(img4.shape)},
+            "planar_warp": dict(ms=time_ms(lambda: kr.planar_warp(*wargs), dev),
+                                plain_ms=time_ms(lambda: kr.planar_warp_plain(*wargs), dev),
+                                library_ms=None, bound_ms=b, bound_by=by,
+                                graph_ms=graph_ms(lambda: kr.planar_warp(*wargs), dev))}
 
 
 def render_times(dev, label: str, call) -> dict:
@@ -2104,6 +2143,12 @@ def phase_render(dev, ring_call, folder_call, planar_band, max_tiles: int) -> di
     out["planar_band"] = dict(pyramid_times(dev, cols, ws, planar_band["bands"]),
                               shape={"band": list(ws.shape)})
     log_times("planar band", out["planar_band"], ("mb_reduce", "mb_collapse"))
+    out["planar_warp"] = planar_warp_times(dev, planar_band)
+    r = out["planar_warp"]["planar_warp"]
+    log(f"render planar band planar_warp (bicubic): {r['ms']:.4f} ms (from a graph "
+        f"{r['graph_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f} % of it; "
+        f"{json.dumps(out['planar_warp']['shape'])}")
     return out
 
 
@@ -2353,6 +2398,23 @@ def main() -> int:
          "launches_note": "every rotational stitch of phases 5-11 (the planar stitches' linear "
                           "blend runs none)"}
         for name in RENDER_KERNELS
+    ] + [
+        {"name": "planar_warp", "route": "cuda",
+         "source": "autopanostitch_tpu_torch/csrc/render.cu",
+         "replaces": "autopanostitch_tpu/models/planar.py:137",
+         "replaces_note": "composite_band's warp_one, XLA fusions in the JAX package: a hand "
+                          "kernel with no Pallas counterpart",
+         "launches": counts["planar_warp"], "multichip_launches": mc_counts["planar_warp"],
+         "max_abs_err": 0.0, "max_err_is": "equal to its plain version (torch.equal) at phase "
+                                           "12's planar band, checked, in its and bicubic",
+         **{k: render["planar_warp"]["planar_warp"][k] for k in keys + ("graph_ms",)},
+         "shape": render["planar_warp"]["shape"],
+         "ms_is": "device time (time_ms, median of 5) at the middle band of phase 7's canvas, "
+                  f"bicubic; graph_ms: a CUDA graph of {GRAPH_LAUNCHES} launches",
+         "library_note": "none computes this function",
+         "bound_unit": "bytes: colours and weights written once, the stack read once, at 3.35 "
+                       "TB/s",
+         "launches_note": "one a band of every planar stitch of phases 5-11"}
     ]}
     if REHEARSE:
         log(json.dumps(kernels))

@@ -1,6 +1,7 @@
 """The render stage's kernels (`kernels/render.py`; `csrc/render.cu`,
-`csrc/render_pyramid.cu`): the tile sampler `render_sample` and the
-multiband pyramid (`mb_reduce`, `mb_collapse`), and the tables they read.
+`csrc/render_pyramid.cu`): the tile sampler `render_sample`, the planar
+band warp `planar_warp`, the multiband pyramid (`mb_reduce`, `mb_collapse`),
+and the tables they read.
 
 On the CPU:
 - `render_sample_plain` (with `multiband_plain` for multiband) against the
@@ -27,6 +28,8 @@ On the CPU:
 - the planar band compositor's multiband (`models/planar.composite_band`,
   (N, H, W) contributors with no leading dims) against the JAX package's at
   an odd band size: coverage equal, uint8 within one level;
+- `planar_warp` on CPU tensors: its plain version, no launch counted; it
+  raises on a wrong dtype, shape or interpolation;
 - every wrapper raises on a tensor that is neither on the CPU nor CUDA;
 - `kernels/render.py` reads only leaf modules of `ops` (they import
   nothing of the package), so the two layers never import each other.
@@ -37,7 +40,11 @@ most one level apart on at most 0.1 % of covered pixels with equal
 coverage; the pyramid's levels within 1e-5 and its uint8 output under the
 same gate, also at the planar band's rank and shape (N, 512, odd width)
 and with 40 contributors; a repeat launch bit-identical and a tile's result
-independent of the other tiles of its launch; `upsample2x` within 2e-6 of
+independent of the other tiles of its launch; `planar_warp` equal to its
+plain version (`torch.equal`) in every interpolation, at a first band and
+a last band past the images, with gains, an invalid image and images cut
+by the canvas edge, and a whole multiband `composite_from_abs` scan on it
+equal to the same scan on the plain warp; `upsample2x` within 2e-6 of
 the dense products at the 38- and 102-view stacks and an odd one, and a
 38-view ring rendered through it against the same render on the dense
 upsample:
@@ -437,6 +444,87 @@ def test_render_kernels_read_only_leaf_ops_modules(name):
     assert not [m for m in mods if m.startswith("autopanostitch_tpu")], mods
 
 
+def _warp_args(dev, interp, first=True, n=9, hw=(300, 400)):
+    """`planar_warp`'s arguments for n views of a 3x3-like scan (image k
+    shifted 27 px right and 9 px down of the last, with a small projective
+    part so no coordinate is a whole pixel), gained, image 2 invalid; the
+    canvas starts inside image 0 (it is cut by the canvas's top and left
+    edges). first: the first band, 512 rows from world row 11.6; else a
+    300-row band from row 267.6 that runs past every image's bottom. The
+    width, 1003, is no multiple of a block."""
+    rng = np.random.default_rng(17)
+    h, w = hw
+    base = rng.uniform(size=(h + 9 * n, w + 27 * n, 3)).astype(np.float32)
+    imgs = np.stack([base[9 * k: 9 * k + h, 27 * k: 27 * k + w] for k in range(n)])
+    t = lambda a, dtype=torch.float32: torch.as_tensor(a, dtype=dtype, device=dev)
+    feathers = tsamp.feather_weights(h, w).numpy()
+    gains = np.resize(GAINS, (n, 3)).astype(np.float32)
+    images4 = torch.cat([t(imgs) * t(gains)[:, None, None, :],
+                         t(feathers).expand(n, h, w)[..., None]], -1)
+    fine4 = tsamp.upsample2x_cubic(images4) if interp == "bicubic2x" else None
+    H_inv = np.tile(np.array([[1.01, 0.02, 0.3], [-0.015, 0.99, 0.7], [1e-5, -2e-5, 1.0]],
+                             np.float32), (n, 1, 1))
+    H_inv[:, 0, 2] -= 27.0 * np.arange(n)
+    H_inv[:, 1, 2] -= 9.0 * np.arange(n)
+    ok = np.arange(n) != 2
+    band = (512, 1003, 17.3, 11.6) if first else (300, 1003, 17.3, 267.6)
+    return (images4, fine4, t(H_inv), t(ok, torch.bool), *band, interp)
+
+
+@pytest.mark.parametrize("interp", INTERPS)
+def test_planar_warp_on_cpu_is_the_plain_version(interp):
+    args = _warp_args("cpu", interp, n=4, hw=(40, 56))
+    args = args[:4] + (24, 61) + args[6:]
+    trace.reset_launch_counts()
+    cols, ws = kr.planar_warp(*args)
+    ref = kr.planar_warp_plain(*args)
+    assert torch.equal(cols, ref[0]) and torch.equal(ws, ref[1])
+    assert cols.shape == (4, 24, 61, 3) and ws.shape == (4, 24, 61)
+    counts = trace.launch_counts()
+    assert counts["planar_warp"] == counts["render_plain_on_cuda"] == 0
+    assert float(ws[2].abs().max()) == 0.0 and float(cols[2].abs().max()) == 0.0  # not ok
+    assert 0.2 < float((ws[0] > 0).float().mean()) < 1  # image 0 partly on the band
+
+
+def test_launch_counts_list_planar_warp():
+    trace.reset_launch_counts()
+    assert trace.launch_counts()["planar_warp"] == 0
+    trace.launched("planar_warp", 3)
+    assert trace.launch_counts()["planar_warp"] == 3
+    trace.reset_launch_counts()
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("images_f64", "images4"), ("images_rgb", "images4"), ("fine_missing", "fine4"),
+    ("fine_shape", "fine4"), ("h_shape", "H_inv"), ("h_f64", "H_inv"), ("ok_float", "ok"),
+    ("ok_shape", "ok"), ("interp", "interpolation"), ("empty_band", "non-empty")])
+def test_planar_warp_checks_its_arguments(bad, match):
+    images4, fine4, H_inv, ok, bh, w, x0, y0, interp = _warp_args("cpu", "bicubic2x", n=3,
+                                                                  hw=(8, 12))
+    if bad == "images_f64":
+        images4 = images4.double()
+    elif bad == "images_rgb":
+        images4 = images4[..., :3]
+    elif bad == "fine_missing":
+        fine4 = None
+    elif bad == "fine_shape":
+        fine4 = fine4[:, 1:]
+    elif bad == "h_shape":
+        H_inv = H_inv[:2]
+    elif bad == "h_f64":
+        H_inv = H_inv.double()
+    elif bad == "ok_float":
+        ok = ok.float()
+    elif bad == "ok_shape":
+        ok = ok[:, None]
+    elif bad == "interp":
+        interp = "lanczos"
+    else:
+        bh = 0
+    with pytest.raises(ValueError, match=match):
+        kr.planar_warp(images4, fine4, H_inv, ok, bh, w, x0, y0, interp)
+
+
 def test_wrappers_raise_on_other_devices():
     sc = _scene(size=(40, 32), f=40.0)
     args = _sample_args(sc, "spherical", "bilinear", "linear", True, "cpu", tile=(8, 8))
@@ -453,6 +541,10 @@ def test_wrappers_raise_on_other_devices():
         kr.render_sample(*args[:1], None, *args[2:13], 1.0, "bicubic2x")
     with pytest.raises(ValueError, match="unsupported device"):
         kr.upsample2x(torch.zeros((2, 8, 9, 4), device="meta"))
+    warp = tuple(x.to("meta") if torch.is_tensor(x) else x
+                 for x in _warp_args("cpu", "bilinear", n=2, hw=(8, 9)))
+    with pytest.raises(ValueError, match="unsupported device"):
+        kr.planar_warp(*warp)
 
 
 # ---------------------------------------------------------------- on the card
@@ -592,6 +684,61 @@ def test_planar_band_multiband_kernels_on_card(interp):
     cols, ws = tplanar.warp_band(*args, interp)
     _u8_gate(u8, cov, *kr.multiband_plain(cols, ws, 3, to_u8=True))
     assert 0.3 < float(cov.float().mean()) < 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("interp", INTERPS)
+def test_planar_warp_kernel_matches_plain_on_card(interp, first):
+    """`planar_warp` equal to its plain version on the card (`torch.equal`,
+    both outputs) at the first band and at a last band past the images'
+    bottom, gained, with an invalid image and one cut by the canvas edge; a
+    repeat launch bit-identical."""
+    dev = _cuda()
+    args = _warp_args(dev, interp, first)
+    names = ("planar_warp", "render_plain_on_cuda")
+    before = trace.launch_counts()
+    cols, ws = kr.planar_warp(*args)
+    torch.cuda.synchronize()
+    assert tuple(trace.launch_counts()[k] - before[k] for k in names) == (1, 0)
+    ref = kr.planar_warp_plain(*args)
+    assert torch.equal(cols, ref[0]) and torch.equal(ws, ref[1])
+    assert float(ws[2].abs().max()) == 0.0  # the invalid image
+    assert 0.05 < float((ws > 0).float().mean()) < 0.9
+    again = kr.planar_warp(*args)
+    assert torch.equal(cols, again[0]) and torch.equal(ws, again[1])
+
+
+@pytest.mark.cuda
+def test_planar_scan_on_planar_warp_matches_plain_on_card(monkeypatch):
+    """A 3x3 scan of 800x600 crops at 35 % overlap composited multiband
+    (bicubic, gains != 1) by `composite_from_abs`: one `planar_warp` a
+    band and no plain version, and the uint8 panorama and coverage equal
+    to the same scan on the plain warp on the card."""
+    dev = _cuda()
+    w, h, sx, sy = 800, 600, 520, 390
+    env = synthdata.texture(5, h + 2 * sy, w + 2 * sx)
+    offs = [(c * sx, r * sy) for r in range(3) for c in range(3)]
+    imgs = np.stack(synthdata.planar_crops(env, [(x, y, w, h) for x, y in offs]))
+    H_abs = np.tile(np.eye(3, dtype=np.float32), (9, 1, 1))
+    H_abs[:, 0, 2], H_abs[:, 1, 2] = [x + 0.37 for x, _ in offs], [y - 0.21 for _, y in offs]
+    H_abs[4, 0, 1], H_abs[4, 2, 0] = 0.002, 1e-6  # one view not a pure translation
+    sizes = np.tile(np.array([h, w], np.int32), (9, 1))
+    images = torch.as_tensor(imgs.astype(np.float32), device=dev)
+    feathers = tsamp.feather_weights(h, w, device=dev).expand(9, h, w).contiguous()
+    gains = np.resize(GAINS, (9, 3)).astype(np.float32)
+    run = lambda: tplanar.composite_from_abs(images, feathers, sizes, H_abs, np.ones(9, bool),
+                                             gains, "multiband", 3, interp="bicubic2x")
+    trace.reset_launch_counts()
+    got = run()
+    counts = trace.launch_counts()
+    bands = -(-got["panorama"].shape[0] // 512)
+    assert bands == 3 and counts["planar_warp"] == bands and counts["render_plain_on_cuda"] == 0
+    monkeypatch.setattr(kr, "planar_warp", kr.planar_warp_plain)
+    ref = run()
+    np.testing.assert_array_equal(got["coverage"], ref["coverage"])
+    np.testing.assert_array_equal(got["panorama"], ref["panorama"])
+    assert got["coverage"].mean() > 0.5
 
 
 @pytest.mark.cuda
