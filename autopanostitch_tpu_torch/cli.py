@@ -8,8 +8,8 @@ per-stage timings.
 Usage:
   python -m autopanostitch_tpu_torch.cli <datasets_root_or_folder> \
       [--out results] [--projections spherical,cylindrical] \
-      [--blend multiband] [--crop] [--force-planar] [--log log.txt] \
-      [--cache DIR] [--profile DIR] [--device cuda]
+      [--blend multiband] [--crop] [--force-planar] [--detector SIFT] \
+      [--log log.txt] [--cache DIR] [--profile DIR] [--device cuda]
 
 A folder is treated as a single dataset if it directly contains images,
 otherwise every image-bearing subfolder is a dataset (reference
@@ -46,6 +46,7 @@ def find_datasets(root: str):
 def build_config(args):
     from autopanostitch_tpu_torch.config import (
         BlendConfig,
+        DetectorConfig,
         MatchingConfig,
         PostConfig,
         RenderConfig,
@@ -54,6 +55,7 @@ def build_config(args):
     )
 
     return StitchConfig(
+        detector=DetectorConfig(detector=args.detector),
         blend=BlendConfig(mode=args.blend),
         matching=MatchingConfig(
             match_pairwise=args.pairwise,
@@ -160,6 +162,9 @@ def main(argv=None):
     ap.add_argument("--blend", default="multiband", choices=["multiband", "linear", "none"])
     ap.add_argument("--crop", action="store_true")
     ap.add_argument("--force-planar", action="store_true")
+    ap.add_argument("--detector", default="SIFT",
+                    help="feature detector (inputs.m input.detector): SIFT, VL_SIFT, HARRIS, "
+                         "FAST, ORB, BRISK, SURF or KAZE")
     ap.add_argument("--pairwise", action="store_true",
                     help="per-pair matching (inputs.m matchFeaturesPairwise)")
     ap.add_argument("--no-rescue", action="store_true",

@@ -28,7 +28,8 @@ def _frozen(cls):
 class DetectorConfig:
     """SIFT / feature-detector parameters (reference `inputs.m:31-41`)."""
 
-    detector: str = "SIFT"  # 'SIFT' | 'HARRIS' | 'ORB' | 'BRISK' | 'FAST' | 'SURF'
+    # 'SIFT' | 'VL_SIFT' | 'HARRIS' | 'ORB' | 'BRISK' | 'FAST' | 'SURF' | 'KAZE'
+    detector: str = "SIFT"
     sigma: float = 1.6  # inputs.m:34
     num_layers_in_octave: int = 4  # inputs.m:35 (s: DoG layers usable per octave)
     contrast_threshold: float = 0.00133  # inputs.m:36

@@ -10,7 +10,8 @@ diffusion instead.
 The per-keypoint window phase is kernel B2 (`kernels/sift_window.py`): one
 `orient_hist` and one `descriptor` launch for all keypoints of an image
 group, on the flattened (G * 8, H, W, 2) magnitude/angle stack of its
-full-resolution levels, with 80 px windows.
+full-resolution levels, with 80 px windows. `extract_from_levels` records
+the spans `doh.detect` and `doh.window` (`utils/trace.py`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from autopanostitch_tpu_torch.config import DetectorConfig
 from autopanostitch_tpu_torch.kernels.sift_window import descriptor, orient_hist, smooth_hist
 from autopanostitch_tpu_torch.ops import sift
 from autopanostitch_tpu_torch.ops.sift import SiftFeatures, gaussian_blur, top_k_stable
+from autopanostitch_tpu_torch.utils import trace
 
 _N_SCALES = 8
 
@@ -41,15 +43,14 @@ def doh_sigmas(cfg: DetectorConfig, n_scales: int = _N_SCALES) -> list:
     return [cfg.sigma * (k ** i) for i in range(n_scales)]
 
 
-def extract_from_levels(Ls, sigmas, cfg: DetectorConfig, resp_fn=None,
-                        border: int = 8) -> SiftFeatures:
-    """Detection and description on a (G, S, H, W) stack of scale-space
-    levels (Gaussian for SURF, nonlinear for KAZE). resp_fn(levels, sigma)
-    gives a level's response (default `hessian_response`)."""
+def detect_levels(Ls, sigmas, K: int, resp_fn=None, border: int = 8):
+    """The K strongest 3x3x3 maxima of the responses of a (G, S, H, W)
+    stack of scale-space levels: (values, level index, y, x), each (G, K);
+    a value <= 0 marks an empty slot. resp_fn(levels, sigma) gives a
+    level's response (default `hessian_response`)."""
     if resp_fn is None:
         resp_fn = hessian_response
     G, S, H, W = Ls.shape
-    dev = Ls.device
     resp = torch.stack([resp_fn(Ls[:, i], s) for i, s in enumerate(sigmas)], 1)
 
     # 3x3x3 non-maximum suppression over (scale, y, x), interior scales;
@@ -63,33 +64,46 @@ def extract_from_levels(Ls, sigmas, cfg: DetectorConfig, resp_fn=None,
     is_max[..., :b] = False
     is_max[..., -b:] = False
 
-    K = cfg.max_keypoints
     score = torch.where(is_max, center, torch.full_like(center, -1.0)).reshape(G, -1)
     vals, flat = top_k_stable(score, K)
-    valid = vals > 0
     si = flat // (H * W) + 1  # back to the level index
     rem = flat % (H * W)
-    y = (rem // W).to(torch.float32)
-    x = (rem % W).to(torch.float32)
-    sigma_kp = torch.tensor(sigmas, dtype=torch.float32, device=dev)[si]
+    return vals, si, rem // W, rem % W
 
-    # magnitude / angle of every level's gradient, the image group flattened
-    # into the levels
-    dx, dy = sift._grad_maps(Ls)
-    src = torch.stack([torch.sqrt(dx * dx + dy * dy), torch.atan2(dy, dx)], -1)
-    src = src.reshape(G * S, H, W, 2)
-    del dx, dy
 
-    win = min(80, (min(H, W) // 8) * 8)
-    cx = torch.clamp(torch.round(x).long() - win // 2, 0, max(W - win, 0))
-    cy = torch.clamp(torch.round(y).long() - win // 2, 0, max(H - win, 0))
-    lev = torch.arange(G, device=dev)[:, None] * S + si
-    lx, ly = x - cx.to(torch.float32), y - cy.to(torch.float32)
-    args = sift._flat(lev, cy, cx, lx, ly, sigma_kp)
-    hist = orient_hist(src, *args, win)
-    thetas, th_ok = sift._dominant_orientations(smooth_hist(hist))
-    theta = thetas[:, 0].contiguous()
-    desc = descriptor(src, *args, theta, win, cfg.descriptor_width, cfg.descriptor_bins)
+def extract_from_levels(Ls, sigmas, cfg: DetectorConfig, resp_fn=None,
+                        border: int = 8) -> SiftFeatures:
+    """Detection and description on a (G, S, H, W) stack of scale-space
+    levels (Gaussian for SURF, nonlinear for KAZE): `detect_levels` in the
+    span `doh.detect`, the window phase (B2) in `doh.window`."""
+    G, S, H, W = Ls.shape
+    dev = Ls.device
+    K = cfg.max_keypoints
+    with trace.span("doh.detect"):
+        vals, si, yi, xi = detect_levels(Ls, sigmas, K, resp_fn, border)
+        valid = vals > 0
+        y = yi.to(torch.float32)
+        x = xi.to(torch.float32)
+        sigma_kp = torch.tensor(sigmas, dtype=torch.float32, device=dev)[si]
+
+    with trace.span("doh.window"):
+        # magnitude / angle of every level's gradient, the image group
+        # flattened into the levels
+        dx, dy = sift._grad_maps(Ls)
+        src = torch.stack([torch.sqrt(dx * dx + dy * dy), torch.atan2(dy, dx)], -1)
+        src = src.reshape(G * S, H, W, 2)
+        del dx, dy
+
+        win = min(80, (min(H, W) // 8) * 8)
+        cx = torch.clamp(torch.round(x).long() - win // 2, 0, max(W - win, 0))
+        cy = torch.clamp(torch.round(y).long() - win // 2, 0, max(H - win, 0))
+        lev = torch.arange(G, device=dev)[:, None] * S + si
+        lx, ly = x - cx.to(torch.float32), y - cy.to(torch.float32)
+        args = sift._flat(lev, cy, cx, lx, ly, sigma_kp)
+        hist = orient_hist(src, *args, win)
+        thetas, th_ok = sift._dominant_orientations(smooth_hist(hist))
+        theta = thetas[:, 0].contiguous()
+        desc = descriptor(src, *args, theta, win, cfg.descriptor_width, cfg.descriptor_bins)
     theta, ok0 = theta.reshape(G, K), th_ok[:, 0].reshape(G, K)
     desc = desc.reshape(G, K, -1)
 

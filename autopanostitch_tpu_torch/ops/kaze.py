@@ -9,6 +9,11 @@ detector's sigma ladder. Detection and description are `doh`'s
 (`extract_from_levels`, kernel B2 for the window phase) with sigma-sized
 derivatives. The step sizes are host Python floats, applied in float32 as
 the reference applies them.
+
+Each image group records the spans `kaze.contrast`, `kaze.scale_space` and
+`kaze.detect` (`utils/trace.py`; `doh.detect` and `doh.window` beneath the
+last) and adds to the counters `kaze.groups`, `kaze.fed_cycles` and
+`kaze.fed_steps`, counted from the host's step lists.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 from autopanostitch_tpu_torch.config import DetectorConfig
 from autopanostitch_tpu_torch.ops import doh
 from autopanostitch_tpu_torch.ops.sift import SiftFeatures, _grad_maps, gaussian_blur
+from autopanostitch_tpu_torch.utils import trace
 
 TAU_MAX = 0.25  # 2-D explicit-scheme stability limit
 
@@ -87,21 +93,28 @@ def _diffusion_step(L, g, tau: float):
     return L + tau * flux
 
 
-def nonlinear_scale_space(img, sigmas, k_sigma: float = 1.0):
+def nonlinear_scale_space(img, sigmas, k_sigma: float = 1.0, k=None):
     """(G, S, H, W) evolved levels of (G, H, W) images at t_i = sigma_i^2 / 2:
-    level 0 the Gaussian base, each next one a further set of FED cycles."""
-    k = contrast_k(img, k_sigma)
+    level 0 the Gaussian base, each next one a further set of FED cycles.
+    k: the (G,) contrast factors, `contrast_k(img, k_sigma)` where None."""
+    if k is None:
+        k = contrast_k(img, k_sigma)
     L = gaussian_blur(img, float(sigmas[0]))
     levels = [L]
     t_prev = 0.5 * float(sigmas[0]) ** 2
+    n_cycles = n_steps = 0
     for s in sigmas[1:]:
         t = 0.5 * float(s) ** 2
         for cycle in fed_cycles(t - t_prev):
             g = _conductivity(L, k)  # refreshed per cycle
             for tau in cycle:
                 L = _diffusion_step(L, g, tau)
+            n_cycles += 1
+            n_steps += len(cycle)
         levels.append(L)
         t_prev = t
+    trace.count("kaze.fed_cycles", n_cycles)
+    trace.count("kaze.fed_steps", n_steps)
     return torch.stack(levels, 1)
 
 
@@ -113,8 +126,13 @@ def hessian_response_scharr(L, sigma: float):
 def extract_kaze(imgs, cfg: DetectorConfig = DetectorConfig()) -> SiftFeatures:
     """KAZE blobs + SIFT-window descriptors of a (G, H, W) gray image group."""
     sigmas = doh.doh_sigmas(cfg)
-    Ls = nonlinear_scale_space(imgs, sigmas)
-    return doh.extract_from_levels(Ls, sigmas, cfg, resp_fn=hessian_response_scharr)
+    trace.count("kaze.groups")
+    with trace.span("kaze.contrast"):
+        k = contrast_k(imgs)
+    with trace.span("kaze.scale_space"):
+        Ls = nonlinear_scale_space(imgs, sigmas, k=k)
+    with trace.span("kaze.detect"):
+        return doh.extract_from_levels(Ls, sigmas, cfg, resp_fn=hessian_response_scharr)
 
 
 def extract_kaze_batch(imgs, cfg: DetectorConfig, group: int = 8) -> SiftFeatures:

@@ -125,3 +125,21 @@ def test_cli_profile_writes_the_span_table(both_runs):
     assert int(got["ba.lm_iterations"]) > 0 and int(got["render.bands"]) >= 1
     events = json.loads((out / "trace" / timing.TRACE_FILE).read_text())["traceEvents"]
     assert "apst:stitch" in {e.get("name") for e in events}
+
+
+def test_cli_profile_lists_kaze(dataset_dir, tmp_path):
+    """--detector KAZE with --profile: the span table holds KAZE's and the
+    DoH detector's spans, one a group of 8 images, and the counters KAZE's
+    group, FED cycles and steps."""
+    prof = tmp_path / "trace"
+    assert tcli.main([str(dataset_dir), "--out", str(tmp_path / "out"), "--device", "cpu",
+                      "--detector", "KAZE", "--no-write", "--profile", str(prof)] + ARGS) == 0
+    table = (prof / timing.SPANS_FILE).read_text().splitlines()
+    (counters,) = [line for line in table[1:] if line.startswith("counters ")]
+    rows = {line.split()[0]: line.split() for line in table[1:] if line != counters}
+    for name in ("kaze.contrast", "kaze.scale_space", "kaze.detect", "doh.detect",
+                 "doh.window"):
+        assert rows[name][1] == "1", name
+    got = dict(kv.split("=") for kv in counters.split(": ", 1)[1].split())
+    assert (got["kaze.groups"], got["kaze.fed_cycles"], got["kaze.fed_steps"]) == (
+        "1", "11", "137")
