@@ -20,6 +20,9 @@
   `mb_collapse` (`render.multiband`); and bicubic2x's 2x upsample
   `upsample2x` (replaces `jax.image.resize(..., "cubic")` of
   `models/render.py:350`, XLA: no Pallas counterpart).
+- `kaze`: KAZE's FED diffusion step `fed_step`, one launch a step of the
+  nonlinear scale space (replaces `_diffusion_step` of `ops/kaze.py`, XLA
+  in the JAX package: no Pallas counterpart).
 - `window_gather`: B2's first port, the window gather alone (replaces
   `ops/pallas/window_gather.py`); off the main path, it is the unfused
   yardstick of `sift_window`.
@@ -32,8 +35,9 @@ tracer's tally under the kernel's name (`utils/trace.launched`; read with
 `descriptor`; `ba_system`, also the launches that the LM phases' CUDA
 graphs replay; `render_sample`, `mb_reduce`, `mb_collapse`, `upsample2x`,
 and `render_plain_on_cuda`, the render plain versions' calls on CUDA
-tensors. `models/bundle` counts those graphs' captures and replays.
+tensors; `fed_step`. `models/bundle` counts those graphs' captures and replays.
 """
 
-# imported in this order so that `trace.launch_counts()` lists B1, B2, the BA, then the render
-from autopanostitch_tpu_torch.kernels import knn, window_gather, sift_window, ba, render  # noqa: F401
+# imported in this order so that `trace.launch_counts()` lists B1, B2, the BA, the render, KAZE
+from autopanostitch_tpu_torch.kernels import (  # noqa: F401
+    knn, window_gather, sift_window, ba, render, kaze)

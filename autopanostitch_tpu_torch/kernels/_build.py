@@ -140,6 +140,8 @@ def _declare(lib):
     lib.apst_mb_collapse.restype = I
     lib.apst_upsample2x.argtypes = [P, I, I, I, P, P, I, P, P, I, P, P]
     lib.apst_upsample2x.restype = I
+    lib.apst_fed_step.argtypes = [P, P, P, I, I, I, F, P]
+    lib.apst_fed_step.restype = I
     lib.apst_noop.argtypes = [P]
     lib.apst_noop.restype = I
     lib.apst_error_string.argtypes = [I]

@@ -8,7 +8,9 @@ refreshed each cycle, up to the times t_i = sigma_i^2 / 2 of the DoH
 detector's sigma ladder. Detection and description are `doh`'s
 (`extract_from_levels`, kernel B2 for the window phase) with sigma-sized
 derivatives. The step sizes are host Python floats, applied in float32 as
-the reference applies them.
+the reference applies them. Each explicit step is one launch of the
+`fed_step` kernel on a card (`kernels/kaze.py`); the conductivity refresh,
+the contrast sort, the base blur and the detection are plain PyTorch.
 
 Each image group records the spans `kaze.contrast`, `kaze.scale_space` and
 `kaze.detect` (`utils/trace.py`; `doh.detect` and `doh.window` beneath the
@@ -23,6 +25,7 @@ import math
 import torch
 
 from autopanostitch_tpu_torch.config import DetectorConfig
+from autopanostitch_tpu_torch.kernels import kaze as kaze_kernels
 from autopanostitch_tpu_torch.ops import doh
 from autopanostitch_tpu_torch.ops.sift import SiftFeatures, _grad_maps, gaussian_blur
 from autopanostitch_tpu_torch.utils import trace
@@ -75,22 +78,12 @@ def fed_cycles(T: float, tau_max: float = TAU_MAX, n_max: int = 12) -> list:
     return [fed_tau(T / m, tau_max) for _ in range(m)]
 
 
-def _shift(a, d: int, dim: int):
-    """torch.roll by d along dim with the wrapped row replaced by the edge
-    row it left (edge replication)."""
-    r = torch.roll(a, d, dim)
-    edge = 0 if d > 0 else -1
-    r.select(dim, edge).copy_(a.select(dim, edge))
-    return r
-
-
 def _diffusion_step(L, g, tau: float):
     """One explicit step of div(g grad L) with half-point conductivities and
-    Neumann boundaries; tau is applied as a float32."""
-    flux = torch.zeros_like(L)
-    for d, dim in ((-1, -1), (1, -1), (-1, -2), (1, -2)):  # E, W, S, N
-        flux = flux + 0.5 * (g + _shift(g, d, dim)) * (_shift(L, d, dim) - L)
-    return L + tau * flux
+    Neumann boundaries; tau is applied as a float32. The one call site of
+    the step: `kernels/kaze.fed_step` (one kernel launch on a card, the plain
+    version on the CPU)."""
+    return kaze_kernels.fed_step(L, g, tau)
 
 
 def nonlinear_scale_space(img, sigmas, k_sigma: float = 1.0, k=None):

@@ -37,6 +37,10 @@ Phases, each printing its own lines:
      2048 keypoints, 80 px windows for both phases): raw histograms within
      1e-5 of each row's max, descriptors within 1e-4 (max) and 1e-6 (mean),
      a repeat launch bit-identical;
+  4c. KAZE's FED step (`kaze.cu`: `fed_step`) against its plain version
+     at a kaze800 image group's shape (8, 600, 800), at each step size of
+     the longest FED cycle: equal bit for bit (`torch.equal`); timed beside
+     its plain version (about 39 eager kernels) and its bytes bound;
   Every kernel time is the device's: CUDA events around a call with the
   card kept busy by a sleep while the host enqueues it (`time_ms`), or a
   CUDA graph of back-to-back calls (`graph_ms`, phase 9b).
@@ -76,7 +80,8 @@ Phases, each printing its own lines:
      and with KAZE, each held to the JAX package's result on the same scene
      (JAX_PHASE8, from tools/jax_gates.py): the same panoramas, focal error
      < 1 %, PSNR at least the JAX figure less 3 dB; ORB must launch B1 and
-     not B2, SURF and KAZE both;
+     not B2, SURF and KAZE both; KAZE `fed_step` 137 times an image group of
+     8, the others never;
   9. the 100-view ring of `bench.build_pano` (384x288, f = 350 px) with its
      config: one panorama of 100, focal error < 1 %, PSNR >= 40 dB and >=
      the JAX package's CPU result less 3 dB (JAX_PANO100), the stage split;
@@ -199,6 +204,13 @@ PHASE8 = {
     "kaze": {"detector": {"detector": "KAZE"}},
 }
 PHASE8_RING = (12, 600.0, 800, 600, (1024, 2048), 0.2)  # n, f, w, h, texture (h, w), cutoff
+# KAZE's explicit steps an image group (`kaze.fed_steps`: 11 FED cycles over
+# the 8-level ladder) and the images a group (`ops/doh.batched`)
+FED_STEPS_A_GROUP = 137
+KAZE_GROUP = 8
+# `fed_step`'s float32 operations a pixel: 4 neighbours x (add, 2 products,
+# subtract, add to the flux), the product by tau and the last add
+FED_STEP_OPS = 22
 # the JAX package's results on phase 8's scenes, on a CPU:
 #   python3 tools/jax_gates.py
 # panoramas (sorted member lists), max focal error %, spherical PSNR dB
@@ -850,6 +862,42 @@ def phase_b2_fused(dev, cases):
                                   copy=route, window_union_bytes=covered)
         del src
     return recs
+
+
+def phase_fed_step(dev, G: int, H: int, W: int) -> dict:
+    """Phase 4c: `fed_step` against its plain version on random levels in
+    [0, 1) and a conductivity in (0, 1] of shape (G, H, W), at every step
+    size of the ladder's longest FED cycle, equal bit for bit; the kernel
+    timed at that cycle's last (largest) step beside the plain version and
+    its bound (L and g read once, out written once)."""
+    import torch
+
+    from autopanostitch_tpu_torch.config import DetectorConfig
+    from autopanostitch_tpu_torch.kernels import kaze as KK
+    from autopanostitch_tpu_torch.ops import doh, kaze
+
+    sig = doh.doh_sigmas(DetectorConfig())
+    cycle = kaze.fed_cycles(0.5 * (sig[-1] ** 2 - sig[-2] ** 2))[0]
+    gen = torch.Generator().manual_seed(23)
+    L = torch.rand((G, H, W), generator=gen).to(dev)
+    g = (1.0 - torch.rand((G, H, W), generator=gen)).to(dev)
+    equal = all(bool(torch.equal(KK.fed_step(L, g, tau), KK.fed_step_plain(L, g, tau)))
+                for tau in cycle)
+    tau = cycle[-1]
+    ms = time_ms(lambda: KK.fed_step(L, g, tau), dev)
+    gms = graph_ms(lambda: KK.fed_step(L, g, tau), dev)
+    plain_ms = time_ms(lambda: KK.fed_step_plain(L, g, tau), dev)
+    nbytes = 3 * L.numel() * 4
+    bound, by = bound_ms(FED_STEP_OPS * L.numel(), nbytes, FP32_FLOPS)
+    log(f"fed_step {(G, H, W)}: equal to the plain version at the {len(cycle)} steps of the "
+        f"longest cycle (tau {cycle[0]:.4f} - {tau:.4f}): {equal} | kernel {ms:.4f} ms (graph "
+        f"{gms:.4f} ms) plain {plain_ms:.3f} ms | bound {bound:.4f} ms ({by}; "
+        f"{nbytes / 1e6:.1f} MB at {HBM_BYTES / 1e12:.2f} TB/s), share {bound / ms:.1%} (graph "
+        f"{bound / gms:.1%})")
+    if not equal:
+        raise AssertionError("fed_step differs from its plain version")
+    return dict(ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                bound_by=by, shape=[G, H, W], steps=len(cycle))
 
 
 def config_with(config, fields: dict):
@@ -1666,6 +1714,10 @@ def phase_detectors(dev, n: int, f_true: float, w: int, h: int, env_hw, cutoff: 
         if not (ferr < 1.0 and psnr >= psnr_min):
             raise AssertionError(f"{name}: focal error {ferr:.3f} % or PSNR {psnr:.2f} dB "
                                  f"(gate {psnr_min:.2f})")
+        fed = FED_STEPS_A_GROUP * -(-n // KAZE_GROUP) if name == "kaze" else 0
+        if dev.type == "cuda" and counts["fed_step"] != fed:
+            raise AssertionError(f"{name}: fed_step launched {counts['fed_step']} times, "
+                                 f"expected {fed}")
         runs_b2 = not name.startswith("orb")  # binary descriptors: no window phase
         if dev.type == "cuda" and not (counts["knn"] > 0 and counts["ba_system"] > 0 and all(
                 (counts[k] > 0) == runs_b2 for k in ("orient_hist", "descriptor"))):
@@ -2162,7 +2214,7 @@ def main() -> int:
                      b2f=[("octave0", 2 * 7, 96, 128, 64, 40, 80),
                           ("odd_w_coarse", 2 * 7, 38, 51, 16, 32, 32),
                           ("doh", 2 * 8, 96, 128, 2 * 64, 80, 80)],
-                     ring=(12, 240.0, 320, 240, (512, 1024)),
+                     fed=(2, 48, 64), ring=(12, 240.0, 320, 240, (512, 1024)),
                      multi=(10, 240.0, 320, 240, (512, 1024), 200, 35.0), planar=(320, 240, 40.0),
                      detectors=(8, 240.0, 320, 240, (512, 1024), 0.2, None),
                      ring_gates=None, pano100=(16, 175.0, 192, 144, (384, 1024), None),
@@ -2178,7 +2230,7 @@ def main() -> int:
                      b2f=[("octave0", 20 * 7, 600, 800, 20 * 2048, 40, 80),
                           ("odd_w_coarse", 20 * 7, 38, 51, 20 * 128, 32, 32),
                           ("doh", 8 * 8, 600, 800, 8 * 2048, 80, 80)],
-                     ring=RING,
+                     fed=(KAZE_GROUP, 600, 800), ring=RING,
                      multi=(12, 600.0, 800, 600, (1024, 2048), 400, JAX_MULTIPANO_PSNR - 3.0),
                      planar=(800, 600, JAX_PLANAR_PSNR - 3.0),
                      detectors=PHASE8_RING + (JAX_PHASE8,), ring_gates=JAX_RING_OPTIONS,
@@ -2225,6 +2277,7 @@ def main() -> int:
     phase_b1_shapes(dev, sizes["shapes_F"], sizes["n_img"])
     b2 = phase_b2(dev, *sizes["b2"])
     b2f = phase_b2_fused(dev, sizes["b2f"])
+    fed = phase_fed_step(dev, *sizes["fed"])
     ring_counts, ring_feats, ring_ba, ring_render = phase_slice(dev, *sizes["ring"])
     runs = [ring_counts]
     runs += phase_ring_options(dev, *sizes["ring"], ring_feats, sizes["ring_gates"]).values()
@@ -2415,6 +2468,22 @@ def main() -> int:
          "bound_unit": "bytes: colours and weights written once, the stack read once, at 3.35 "
                        "TB/s",
          "launches_note": "one a band of every planar stitch of phases 5-11"}
+    ] + [
+        {"name": "fed_step", "route": "cuda", "source": "autopanostitch_tpu_torch/csrc/kaze.cu",
+         "replaces": "autopanostitch_tpu/ops/kaze.py:110",
+         "replaces_note": "_diffusion_step, XLA in the JAX package: a hand kernel with no Pallas "
+                          "counterpart",
+         "launches": det["kaze"]["fed_step"], "max_abs_err": 0.0,
+         "max_err_is": "equal to its plain version (torch.equal) at phase 4c's shape, every step "
+                       "of the longest FED cycle",
+         **{k: fed[k] for k in keys + ("graph_ms", "shape")},
+         "ms_is": "device time (time_ms, median of 5) of one step at the cycle's largest tau, L "
+                  f"and g resident in L2 as in the scale space; graph_ms: a CUDA graph of "
+                  f"{GRAPH_LAUNCHES} launches",
+         "library_note": "none computes this function; plain_ms is the eager PyTorch step",
+         "bound_unit": "bytes: L and g read once, out written once, at 3.35 TB/s",
+         "launches_note": f"phase 8's KAZE stitch of 12 views: {FED_STEPS_A_GROUP} a group of "
+                          f"{KAZE_GROUP}"}
     ]}
     if REHEARSE:
         log(json.dumps(kernels))

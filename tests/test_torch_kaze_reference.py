@@ -31,15 +31,25 @@ Tolerances, each against float64 (readings of seeds 1-3, float32 port):
 Negative controls, which must fail the comparison: the port's steps with L
 rounded to bfloat16 between steps (levels 1-3 off by 9e-3 to 0.4), and
 SURF's Gaussian levels in place of the diffusion (2.6e-2 to 0.16).
+
+The FED step (`kernels/kaze.py`): its plain version equals a numpy float32
+step written out in the order both versions document (bit for bit), the
+wrapper's checks raise, a CPU tensor takes the plain version, and the scale
+space reaches the step through `ops/kaze._diffusion_step`; on a card the
+kernel equals the plain version bit for bit, one step and a whole group's
+scale space, and launches once a step.
 """
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
 from autopanostitch_tpu_torch.config import DetectorConfig
+from autopanostitch_tpu_torch.kernels import kaze as kaze_kernels
 from autopanostitch_tpu_torch.ops import doh, kaze
+from autopanostitch_tpu_torch.utils import trace
 from pano_bench import kaze_reference as ref
 
 SIG = ref.sigmas()
@@ -253,3 +263,138 @@ def test_timed_group_on_a_card(monkeypatch):
     assert all(e <= tol for e, tol in zip(errs, LEVEL_ATOL)) and means <= 1e-5, errs
     assert max(resp) <= RESP_REL
     assert share >= KEYPOINT_SHARE
+
+
+# ------------------------------------------------------------------ the FED step
+
+LAST_CYCLE = kaze.fed_cycles(0.5 * (SIG[-1] ** 2 - SIG[-2] ** 2))[0]  # the longest steps
+
+
+def step_inputs(shape, seed: int, device="cpu"):
+    """Levels in [0, 1) and a conductivity in (0, 1], float32."""
+    gen = torch.Generator().manual_seed(seed)
+    L = torch.rand(shape, generator=gen)
+    g = 1.0 - torch.rand(shape, generator=gen)
+    return L.to(device), g.to(device)
+
+
+def numpy_step(L, g, tau: float):
+    """The step in the documented order: neighbours E, W, S, N with clamped
+    indices, each (0.5 * (g + g_nb)) * (L_nb - L) added to a flux from 0,
+    then L + tau * flux, every operation rounded in float32."""
+    L, g = np.asarray(L, np.float32), np.asarray(g, np.float32)
+    _, H, W = L.shape
+    ys, xs = np.arange(H), np.arange(W)
+    nbs = ((ys, np.minimum(xs + 1, W - 1)), (ys, np.maximum(xs - 1, 0)),
+           (np.minimum(ys + 1, H - 1), xs), (np.maximum(ys - 1, 0), xs))
+    flux = np.zeros_like(L)
+    for y, x in nbs:
+        Ln, gn = L[:, y][:, :, x], g[:, y][:, :, x]
+        flux = flux + (np.float32(0.5) * (g + gn)) * (Ln - L)
+    return L + np.float32(tau) * flux
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 9), (1, 1, 5), (3, 12, 4), (1, 6, 1)])
+def test_fed_step_plain_is_the_documented_order(shape):
+    L, g = step_inputs(shape, 5)
+    for tau in (LAST_CYCLE[0], LAST_CYCLE[-1], 0.1):
+        got = kaze_kernels.fed_step_plain(L, g, tau).numpy()
+        assert np.array_equal(got, numpy_step(L.numpy(), g.numpy(), tau)), tau
+
+
+def _meta_g(L, g):
+    return L, torch.empty(g.shape, device="meta")
+
+
+@pytest.mark.parametrize("bad", [
+    lambda L, g: (L.double(), g.double()),
+    lambda L, g: (L, g[:, :-1]),
+    lambda L, g: (L.transpose(1, 2), g.transpose(1, 2)),
+    _meta_g,
+], ids=["float64", "g_shape", "non_contiguous", "mixed_devices"])
+def test_fed_step_raises(bad):
+    with pytest.raises(ValueError, match="fed_step"):
+        kaze_kernels.fed_step(*bad(*step_inputs((2, 6, 6), 1)), 0.5)
+
+
+def test_fed_step_on_the_cpu_is_the_plain_version():
+    L, g = step_inputs((2, 9, 11), 3)
+    before = trace.launch_counts()
+    assert "fed_step" in before
+    for tau in LAST_CYCLE:
+        assert torch.equal(kaze_kernels.fed_step(L, g, tau), kaze_kernels.fed_step_plain(L, g, tau))
+    assert trace.launch_counts()["fed_step"] == before["fed_step"]
+
+
+def scale_space_record(img):
+    """(levels, the recorded stitch) of `nonlinear_scale_space(img, SIG)`
+    inside a recorded root span."""
+    records = []
+    undo = trace.subscribe(records.append)
+    try:
+        with trace.stitch(["group"], np.zeros((1, 2), np.int32)):
+            L = kaze.nonlinear_scale_space(img, SIG)
+    finally:
+        undo()
+    return L, records[0]
+
+
+def test_scale_space_reaches_the_step(monkeypatch):
+    """Every step goes through `_diffusion_step` (what
+    `test_bf16_steps_fail` patches) and on to `kernels.kaze.fed_step`: 137
+    a group, the `kaze.fed_steps` counter; no kernel launches on the CPU."""
+    calls = {"ops": 0, "kernel": 0}
+    step, fed_step = kaze._diffusion_step, kaze_kernels.fed_step
+
+    def ops_step(*args):
+        calls["ops"] += 1
+        return step(*args)
+
+    def kernel_step(*args):
+        calls["kernel"] += 1
+        return fed_step(*args)
+
+    monkeypatch.setattr(kaze, "_diffusion_step", ops_step)
+    monkeypatch.setattr(kaze_kernels, "fed_step", kernel_step)
+    img = images(4, G=1, H=24, W=32).float()
+    L, rec = scale_space_record(img)
+    monkeypatch.undo()
+    assert calls == {"ops": 137, "kernel": 137}
+    assert rec.counters["kaze.fed_steps"] == 137
+    assert "launches.fed_step" not in rec.counters
+    assert torch.equal(L, kaze.nonlinear_scale_space(img, SIG))
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 600, 800), (6, 600, 800), (1, 7, 9), (3, 37, 131)])
+def test_fed_step_on_a_card(shape):
+    """The kernel equals the plain version bit for bit at the longest
+    cycle's step sizes: float4 loads with a ragged last tile (W = 800), and
+    the 4-byte path (odd widths, heights below a tile)."""
+    dev = _card()
+    L, g = step_inputs(shape, 7, dev)
+    for tau in LAST_CYCLE:
+        got = kaze_kernels.fed_step(L, g, tau)
+        want = kaze_kernels.fed_step_plain(L, g, tau)
+        assert torch.equal(got, want), (tau, float((got - want).abs().max()))
+
+
+@pytest.mark.cuda
+def test_scale_space_on_a_card(monkeypatch):
+    """A kaze800 group (8 x 600 x 800) through the kernel equals the same
+    scale space with the plain step forced, and launches `fed_step` once a
+    step: `launches.fed_step` = `kaze.fed_steps` = 137."""
+    dev = _card()
+    img = images(6, G=8, H=600, W=800).float().to(dev)
+    trace.reset_launch_counts()
+    L, rec = scale_space_record(img)
+    assert rec.counters["launches.fed_step"] == rec.counters["kaze.fed_steps"] == 137
+    monkeypatch.setattr(kaze, "_diffusion_step", kaze_kernels.fed_step_plain)
+    want = kaze.nonlinear_scale_space(img, SIG)
+    assert torch.equal(L, want), float((L - want).abs().max())
