@@ -9,11 +9,12 @@ folder stitched once through `api.stitch` with the cell's configuration and
 judged by the reference as a run judges it, the worst of the pool kept (as
 a run keeps it). With `--control`, the same folders are stitched again with
 the program's own lower-precision path switched on (`compute_dtype`
-"bfloat16": the matcher's distances from bf16 operands) and judged alike:
-the control, which has to come out as not correct. With `--fault`, the
-same again with that fault of `faults.py` planted underneath. Prints one
-JSON line a seed and side, and a summary of each number's worst sound
-reading and, for the control and each fault, its best. Needs a CUDA card.
+"bfloat16": the matcher's distances from bf16 operands) and judged alike,
+by the configuration the cell states: the control, which has to come out
+as not correct. With `--fault`, the same again with that fault of
+`faults.py` planted underneath. Prints one JSON line a seed and side, and
+a summary of each number's worst sound reading and, for the control and
+each fault, its best. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -76,7 +77,7 @@ def main(argv=None) -> int:
                     res = api.stitch(folder.iset, cfg, seed=folder.stitch_seed,
                                      device="cuda")
                     times.append(time.perf_counter() - t)
-                    rows.append(harness.judge(folder, res, sides[side], second.take()))
+                    rows.append(harness.judge(folder, res, config, second.take()))
                     del res
             finally:
                 second.uninstall()

@@ -2,8 +2,9 @@
 catches each fault a stitching cell can have (`tests/test_bench_faults.py`
 on the CPU, `calibrate.py --fault` on the card at a cell's own size):
 
-- `knn_swap`: an answer altered where it is produced: B1 returns, for every
-  tenth query, its second nearest neighbour as the first;
+- `knn_swap`: an answer altered where it is produced: B1, and the
+  approximate pooled matcher (`ops/matching._approximate_knn`), return,
+  for every tenth query, its second nearest neighbour as the first;
 - `half_views`: half of the batch left out: every other view's features are
   dropped after extraction;
 - `ba_unchanged`: a step that returns its state unchanged: every LM phase of
@@ -31,14 +32,16 @@ def _swap(out):
 def plant(name: str):
     from autopanostitch_tpu_torch.kernels import knn
     from autopanostitch_tpu_torch.models import bundle, bundle_h, pipeline
+    from autopanostitch_tpu_torch.ops import matching
 
     if name == "knn_swap":
-        plain, cuda = knn.knn_plain, knn._knn_cuda
+        plain, cuda, approx = knn.knn_plain, knn._knn_cuda, matching._approximate_knn
         knn.knn_plain = lambda *a, **k: _swap(plain(*a, **k))
         knn._knn_cuda = lambda *a, **k: _swap(cuda(*a, **k))
+        matching._approximate_knn = lambda *a, **k: _swap(approx(*a, **k))
 
         def undo():
-            knn.knn_plain, knn._knn_cuda = plain, cuda
+            knn.knn_plain, knn._knn_cuda, matching._approximate_knn = plain, cuda, approx
     elif name == "half_views":
         extract = pipeline.features_stage.extract_features
 

@@ -8,11 +8,15 @@ on the next folder of the pool as soon as the last returned, until
 `seconds` have passed since the first call; the folder started last
 finishes inside it. After the window the reference judges one result of
 each folder of the pool, drawn from the seed among its stitches in the
-window (`reference.py`), with what its second passes derived.
+window (`reference.py`), with what its second passes derived, by the
+configuration the cell states: a run that changes the program's
+configuration (the control) does not change the rule its matches are held
+to.
 
-With `trace`, each stitch gets a stage timer (which synchronises the
-device at each stage's end), the window is profiled, and the line carries
-the cell's per-layer metrics instead of its end-to-end ones.
+With `trace`, each stitch gets a stage timer (its stages' seconds are the
+device's stream time between CUDA events, read after the stitch), the
+window is profiled, and the line carries the cell's per-layer metrics
+instead of its end-to-end ones.
 """
 
 from __future__ import annotations
@@ -135,7 +139,9 @@ class SecondPasses:
 
 
 def judge(folder, result, config: dict, second_passes=()) -> Dict[str, float]:
-    """The numbers the reference compares for one folder's result; the
+    """The numbers the reference compares for one folder's result, by the
+    configuration the cell states (`config`: its bundle adjustment's
+    objective, its ratios and its matcher, `reference.stated_matcher`); the
     match numbers are the worst over the first pass and each second pass."""
     kind = folder.truth["kind"]
     if kind == "rotational":
@@ -143,14 +149,15 @@ def judge(folder, result, config: dict, second_passes=()) -> Dict[str, float]:
     else:
         nums = reference.judge_planar(result, folder.truth, config["stitch_config"]["bundle"])
     m = config["stitch_config"]["matching"]
+    matcher = reference.stated_matcher(config)
     g = result.graph
     nums.update(reference.match_excess(
         result.features.desc, result.features.mask, g.pairs, g.pair_idx, g.pair_mask, g.counts,
-        float(m["ratio_threshold"]), float(m["pairwise_rescue_ratio"])))
+        float(m["ratio_threshold"]), float(m["pairwise_rescue_ratio"]), matcher=matcher))
     for feats, g2 in second_passes:
         r = float(m["ratio_threshold"])
         sp = reference.match_excess(feats.desc, feats.mask, g2.pairs, g2.pair_idx, g2.pair_mask,
-                                    g2.counts, r, r, pairwise_only=True)
+                                    g2.counts, r, r, pairwise_only=True, matcher=matcher)
         for k in ("match_excess", "match_missing"):
             nums[k] = max(nums[k], sp[k])
     nums["second_passes"] = float(len(second_passes))
@@ -165,15 +172,19 @@ def _passes(value: float, lim: dict) -> bool:
 
 def run_cell(bench: dict, workload: dict, seed: int, seconds: float, trace: bool,
              device: str, t_process: float, traffic: Optional[dict] = None,
-             config: Optional[dict] = None, limits: Optional[dict] = None) -> dict:
+             config: Optional[dict] = None, limits: Optional[dict] = None,
+             stated: Optional[dict] = None) -> dict:
     """Set-up, window and check of one run; returns the result line's object.
-    `traffic`, `config` and `limits` replace the cell's files (tests)."""
+    `traffic`, `config` and `limits` replace the cell's files (tests);
+    `config` is what the program runs, `stated` the configuration its
+    results are judged by: the cell's file unless given."""
     from autopanostitch_tpu_torch import api
     from autopanostitch_tpu_torch.models import bundle
 
     name = workload["name"]
     traffic = traffic if traffic is not None else spec.traffic(workload["traffic"])
-    config = config if config is not None else spec.config_file(bench, workload["config"])
+    stated = stated if stated is not None else spec.config_file(bench, workload["config"])
+    config = config if config is not None else stated
     limits = (limits if limits is not None else spec.limits(name))["checks"]
     cfg = spec.stitch_config(config)
     dev = torch.device(device)
@@ -304,7 +315,7 @@ def run_cell(bench: dict, workload: dict, seed: int, seconds: float, trace: bool
     if second.missing:
         print("harness: the program has no pipeline.second_pass_component; second passes "
               "are judged only through the panoramas", file=sys.stderr)
-    rows = [judge(pool[j], res, config, passes) for j, (res, passes) in sorted(kept.items())]
+    rows = [judge(pool[j], res, stated, passes) for j, (res, passes) in sorted(kept.items())]
     kept.clear()
     worst = worst_of(rows, limits)
     checks = {c: {"value": worst[c], "limit": lim["limit"]} for c, lim in limits.items()}
