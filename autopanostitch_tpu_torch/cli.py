@@ -9,7 +9,8 @@ Usage:
   python -m autopanostitch_tpu_torch.cli <datasets_root_or_folder> \
       [--out results] [--projections spherical,cylindrical] \
       [--blend multiband] [--crop] [--force-planar] [--detector SIFT] \
-      [--log log.txt] [--cache DIR] [--profile DIR] [--device cuda]
+      [--matching-method exhaustive] [--log log.txt] [--cache DIR] \
+      [--profile DIR] [--device cuda]
 
 A folder is treated as a single dataset if it directly contains images,
 otherwise every image-bearing subfolder is a dataset (reference
@@ -58,6 +59,7 @@ def build_config(args):
         detector=DetectorConfig(detector=args.detector),
         blend=BlendConfig(mode=args.blend),
         matching=MatchingConfig(
+            method=args.matching_method,
             match_pairwise=args.pairwise,
             pairwise_rescue=not args.no_rescue,
         ),
@@ -165,6 +167,10 @@ def main(argv=None):
     ap.add_argument("--detector", default="SIFT",
                     help="feature detector (inputs.m input.detector): SIFT, VL_SIFT, HARRIS, "
                          "FAST, ORB, BRISK, SURF or KAZE")
+    ap.add_argument("--matching-method", default="exhaustive",
+                    choices=["exhaustive", "approximate"],
+                    help="the pooled matcher (inputs.m:48): exact kNN, or a 32-d random-projection "
+                         "sketch's candidates re-ranked exactly")
     ap.add_argument("--pairwise", action="store_true",
                     help="per-pair matching (inputs.m matchFeaturesPairwise)")
     ap.add_argument("--no-rescue", action="store_true",

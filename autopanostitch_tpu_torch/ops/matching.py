@@ -13,7 +13,16 @@
   plain PyTorch on the card, as the reference's is XLA and not a kernel:
   per query block a 32-d random-projection sketch ranks every target, the
   8k best go through exact expansion-form distances, and the k nearest of
-  those are kept.
+  those are kept. It records the span `matching.approx` (beneath the
+  pipeline's `matching.knn`) with `matching.approx.project` (desc @ G,
+  once a call) and, for each query block, `matching.approx.rank` (the
+  sketch distances, the masks, the sort) and `matching.approx.rerank` (the
+  gather, the exact distances, the top-k), and adds to the counters
+  `matching.approx_blocks`, `matching.approx_rows` (query rows),
+  `matching.approx_candidates` (rows x min(8k, F)) and
+  `matching.approx_sorted_keys` (the keys the blocks' sorts take, b x F a
+  block of b rows), all counted from shapes on the host
+  (`utils/trace.py`).
 
 Every distance's cross term q.t runs in `compute_dtype` ("float32" or
 "bfloat16", the reference's `cfg.tpu.compute_dtype`), with float32 norms
@@ -35,7 +44,7 @@ import torch
 
 from autopanostitch_tpu_torch.kernels.knn import check_compute_dtype, knn, knn_pairs, operand
 from autopanostitch_tpu_torch.ops.sift import top_k_stable
-from autopanostitch_tpu_torch.utils import threefry
+from autopanostitch_tpu_torch.utils import threefry, trace
 
 _BIG = np.float32(1e18)
 _PAIR_CHUNK_BYTES = 1 << 30  # bound of `match_pair_list`'s working set per chunk
@@ -83,25 +92,34 @@ def _approximate_knn(desc, mask, image_id, k: int, block: int, compute_dtype: st
     1e18), and the k nearest of those."""
     F, D = desc.shape
     big = float(_BIG)
-    desc_s = desc @ sketch_matrix(D, desc.device)  # (F, 32)
     n_cand = min(8 * k, F)
-    idx_out, d_out = [], []
-    for s in range(0, F, block):
-        q, qs = desc[s : s + block], desc_s[s : s + block]
-        bad = ((image_id[s : s + block, None] == image_id[None, :]) | ~mask[None, :]
-               | ~mask[s : s + block, None])
-        d_s = torch.where(bad, big, _sqdist(qs, desc_s, compute_dtype))
-        cand = top_k_stable(-d_s, n_cand)[1]  # (b, C)
-        dc = desc[cand]  # (b, C, D)
-        qn = torch.sum(q * q, dim=-1)
-        tn = torch.sum(dc * dc, dim=-1)
-        qt = torch.bmm(operand(dc, compute_dtype), operand(q, compute_dtype)[:, :, None])[..., 0]
-        d_ex = torch.clamp(qn[:, None] + tn - 2.0 * qt, min=0.0)
-        d_ex = torch.where(torch.gather(d_s, 1, cand) >= big, big, d_ex)
-        vals, ii = top_k_stable(-d_ex, k)
-        idx_out.append(torch.gather(cand, 1, ii).to(torch.int32))
-        d_out.append(-vals)
-    return torch.cat(idx_out), torch.cat(d_out)
+    with trace.span("matching.approx"):
+        trace.count("matching.approx_blocks", -(-F // block))
+        trace.count("matching.approx_rows", F)
+        trace.count("matching.approx_candidates", F * n_cand)
+        with trace.span("matching.approx.project"):
+            desc_s = desc @ sketch_matrix(D, desc.device)  # (F, 32)
+        idx_out, d_out = [], []
+        for s in range(0, F, block):
+            q, qs = desc[s : s + block], desc_s[s : s + block]
+            with trace.span("matching.approx.rank"):
+                trace.count("matching.approx_sorted_keys", q.shape[0] * F)
+                bad = ((image_id[s : s + block, None] == image_id[None, :]) | ~mask[None, :]
+                       | ~mask[s : s + block, None])
+                d_s = torch.where(bad, big, _sqdist(qs, desc_s, compute_dtype))
+                cand = top_k_stable(-d_s, n_cand)[1]  # (b, C)
+            with trace.span("matching.approx.rerank"):
+                dc = desc[cand]  # (b, C, D)
+                qn = torch.sum(q * q, dim=-1)
+                tn = torch.sum(dc * dc, dim=-1)
+                qt = torch.bmm(operand(dc, compute_dtype),
+                               operand(q, compute_dtype)[:, :, None])[..., 0]
+                d_ex = torch.clamp(qn[:, None] + tn - 2.0 * qt, min=0.0)
+                d_ex = torch.where(torch.gather(d_s, 1, cand) >= big, big, d_ex)
+                vals, ii = top_k_stable(-d_ex, k)
+                idx_out.append(torch.gather(cand, 1, ii).to(torch.int32))
+                d_out.append(-vals)
+        return torch.cat(idx_out), torch.cat(d_out)
 
 
 def global_knn(desc, mask, image_id, k: int = 4, method: str = "exhaustive",

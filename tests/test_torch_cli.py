@@ -143,3 +143,30 @@ def test_cli_profile_lists_kaze(dataset_dir, tmp_path):
     got = dict(kv.split("=") for kv in counters.split(": ", 1)[1].split())
     assert (got["kaze.groups"], got["kaze.fed_cycles"], got["kaze.fed_steps"]) == (
         "1", "11", "137")
+
+
+def test_cli_profile_lists_approx(dataset_dir, tmp_path):
+    """--matching-method approximate with --profile: the span table holds the
+    sketch path's spans, one call with a rank and a rerank span a query
+    block, and the counters count the pool: F = 2 images x max_keypoints
+    slots in blocks of match_block rows, min(8k, F) candidates a row, F^2
+    sorted keys."""
+    from autopanostitch_tpu_torch.config import StitchConfig
+
+    prof = tmp_path / "trace"
+    assert tcli.main([str(dataset_dir), "--out", str(tmp_path / "out"), "--device", "cpu",
+                      "--matching-method", "approximate", "--no-write", "--profile", str(prof)]
+                     + ARGS) == 0
+    table = (prof / timing.SPANS_FILE).read_text().splitlines()
+    (counters,) = [line for line in table[1:] if line.startswith("counters ")]
+    rows = {line.split()[0]: line.split() for line in table[1:] if line != counters}
+    cfg = StitchConfig()
+    F = 2 * cfg.detector.max_keypoints
+    blocks = -(-F // cfg.tpu.match_block)
+    assert rows["matching.approx"][1] == rows["matching.approx.project"][1] == "1"
+    assert rows["matching.approx.rank"][1] == rows["matching.approx.rerank"][1] == str(blocks)
+    got = dict(kv.split("=") for kv in counters.split(": ", 1)[1].split())
+    want = {"matching.approx_blocks": blocks, "matching.approx_rows": F,
+            "matching.approx_candidates": F * min(8 * cfg.matching.k, F),
+            "matching.approx_sorted_keys": F * F}
+    assert {k: got[k] for k in want} == {k: f"{v:g}" for k, v in want.items()}
